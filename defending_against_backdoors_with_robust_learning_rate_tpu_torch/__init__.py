@@ -1,0 +1,25 @@
+"""PyTorch / CUDA port of the robust-learning-rate federated-learning
+simulator, for one NVIDIA H100.
+
+The JAX package `defending_against_backdoors_with_robust_learning_rate_tpu`
+beside this one is the reference: every module here names its counterpart
+there, and the tests hold each against it. This package imports torch and
+numpy only, never jax, flax or the JAX package.
+
+Slice 1 ports the paper's headline path (FMNIST, CNN_MNIST, K=10 agents,
+FedAvg with the RLR vote):
+
+    config.py   the main-path flags of the JAX CLI
+    data/       synthetic + FMNIST idx data, label-sorted partition, stacks
+    attack/     trojan stamps + poisoning
+    models/     CNN_MNIST / CNN_CIFAR (NCHW) + the Flax weight carrier
+    ops/        sgd/clip/PGD, aggregation rules, the fused RLR server kernel
+    fl/         local training, the round, eval
+    utils/      run name + JSONL metrics
+    train.py    the round loop and `main(argv)`
+
+Hand-written kernel sources live in `csrc/` and are built on first use into
+`build/torch_ext/` at the repository root.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,135 @@
+"""Main-path configuration: the JAX CLI's flag names and defaults, cut to
+the fields slice 1 runs.
+
+Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
+config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
+keeps the JAX name and default; flags the port does not run yet are not
+accepted, so a command line that asks for one fails instead of being
+quietly ignored.
+
+Port-only fields:
+- ``device`` (default ``cuda``): where the round runs. A run on ``cuda``
+  with no card raises; it never carries on on the CPU.
+- ``use_fused`` (default on, ``--no_fused`` turns it off): the fused RLR
+  server kernel (`ops/rlr_fused.py`) is the server step wherever
+  `fl/rounds._fused_applicable` holds. In JAX the Pallas kernel is the
+  opt-in ``--use_pallas``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+from typing import Optional
+
+AGGRS = ("avg", "sign")     # the rules this slice ports (ops/aggregate.py)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    # --- reference flag surface (names + defaults as in the JAX Config) ---
+    data: str = "fmnist"            # fmnist | synthetic
+    num_agents: int = 10            # K
+    agent_frac: float = 1.0         # C, fraction of agents sampled per round
+    num_corrupt: int = 0            # first num_corrupt agent ids are malicious
+    rounds: int = 200
+    aggr: str = "avg"               # avg | sign
+    local_ep: int = 2
+    bs: int = 256
+    client_lr: float = 0.1
+    client_moment: float = 0.9
+    server_lr: float = 1.0          # only used as-is for aggr='sign'
+    base_class: int = 5
+    target_class: int = 7
+    poison_frac: float = 0.0
+    pattern_type: str = "plus"      # plus | square
+    robustLR_threshold: int = 0     # >0 enables the RLR defense
+    clip: float = 0.0               # >0 enables client-side PGD L2 projection
+    noise: float = 0.0              # >0 adds N(0, noise*clip) server noise
+    snap: int = 1                   # eval every `snap` rounds
+    seed: int = 0
+    data_dir: str = "./data"
+    log_dir: str = "./logs"
+    eval_bs: int = 1024
+    synth_train_size: int = 2048
+    synth_val_size: int = 512
+    synth_hardness: float = 0.0
+    # --- port-only ---
+    device: str = "cuda"
+    use_fused: bool = True
+
+    @property
+    def effective_server_lr(self) -> float:
+        """server_lr is forced to 1.0 unless aggr=='sign' (JAX config.py:510-512,
+        reference src/federated.py:23)."""
+        return self.server_lr if self.aggr == "sign" else 1.0
+
+    @property
+    def agents_per_round(self) -> int:
+        """The per-round sample m = floor(K * C) (reference src/federated.py:68;
+        the JAX port's --cohort_size override is not in this slice)."""
+        return max(1, math.floor(self.num_agents * self.agent_frac))
+
+    @property
+    def n_classes(self) -> int:
+        return 10
+
+    @property
+    def image_shape(self):
+        if self.data == "fmnist":
+            return (28, 28, 1)
+        if self.data == "synthetic":
+            return (8, 8, 1)
+        raise ValueError(f"unknown dataset {self.data!r}")
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    d = Config()
+    p = argparse.ArgumentParser(
+        description="robust-learning-rate federated learning (PyTorch/CUDA)")
+    for f in dataclasses.fields(Config):
+        if f.name == "use_fused":
+            continue
+        p.add_argument(f"--{f.name}", type=type(getattr(d, f.name)),
+                       default=getattr(d, f.name))
+    p.add_argument("--no_fused", action="store_true",
+                   help="server step through ops/aggregate.py instead of "
+                        "the fused RLR kernel")
+    return p
+
+
+def args_parser(argv: Optional[list] = None) -> Config:
+    """Parse CLI flags into a Config (JAX `config.args_parser`)."""
+    ns = build_parser().parse_args(argv)
+    kw = {k: v for k, v in vars(ns).items() if k != "no_fused"}
+    cfg = Config(use_fused=not ns.no_fused, **kw)
+    if cfg.aggr not in AGGRS:
+        raise ValueError(f"--aggr {cfg.aggr!r} is not ported yet "
+                         f"(slice 1 has {AGGRS})")
+    return cfg
+
+
+def print_exp_details(cfg: Config) -> None:
+    """Banner matching the JAX driver's (reference src/utils.py:287-303)."""
+    print("======================================")
+    print(f"    Dataset: {cfg.data}")
+    print(f"    Global Rounds: {cfg.rounds}")
+    print(f"    Aggregation Function: {cfg.aggr}")
+    print(f"    Number of agents: {cfg.num_agents}")
+    print(f"    Fraction of agents: {cfg.agent_frac}")
+    print(f"    Batch size: {cfg.bs}")
+    print(f"    Client_LR: {cfg.client_lr}")
+    print(f"    Server_LR: {cfg.effective_server_lr}")
+    print(f"    Client_Momentum: {cfg.client_moment}")
+    print(f"    RobustLR_threshold: {cfg.robustLR_threshold}")
+    print(f"    Noise Ratio: {cfg.noise}")
+    print(f"    Number of corrupt agents: {cfg.num_corrupt}")
+    print(f"    Poison Frac: {cfg.poison_frac}")
+    print(f"    Clip: {cfg.clip}")
+    print(f"    Seed: {cfg.seed}  Device: {cfg.device}  "
+          f"Fused server step: {cfg.use_fused}")
+    print("======================================")

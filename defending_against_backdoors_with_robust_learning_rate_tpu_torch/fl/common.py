@@ -1,0 +1,36 @@
+"""Shared pieces of the train/eval compute path.
+
+Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
+fl/common.py` (`make_normalizer`, `masked_ce`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def make_normalizer(mean, std, device="cpu"):
+    """Raw NHWC pixels -> normalized NCHW float32 model input:
+    (x/255 - mean)/std with the reference constants (src/utils.py:101,
+    113-116). The JAX normalizer keeps NHWC for its NHWC model; this one
+    moves channels first for the NCHW model, which is a view for the
+    one-channel images of the main path."""
+    mean_t = torch.as_tensor(mean, dtype=torch.float32,
+                             device=device).reshape(1, -1, 1, 1)
+    std_t = torch.as_tensor(std, dtype=torch.float32,
+                            device=device).reshape(1, -1, 1, 1)
+
+    def norm(x):
+        x = x.permute(0, 3, 1, 2).to(torch.float32)
+        return (x / 255.0 - mean_t) / std_t
+    return norm
+
+
+def masked_ce(logits, labels, weights):
+    """Cross-entropy mean over the real (unpadded) samples of a batch; the
+    batch mean of nn.CrossEntropyLoss (reference src/agent.py:47) when the
+    batch is partly padding."""
+    ce = F.cross_entropy(logits, labels, reduction="none")
+    w = weights.to(torch.float32)
+    return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1.0)

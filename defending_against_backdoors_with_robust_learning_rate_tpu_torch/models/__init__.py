@@ -1,0 +1,1 @@
+"""Slice-1 port; see the package docstring."""

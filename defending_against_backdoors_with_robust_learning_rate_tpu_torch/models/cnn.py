@@ -1,0 +1,92 @@
+"""The reference CNNs as NCHW torch modules.
+
+Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
+models/cnn.py` (Flax, NHWC); reference src/models.py:11-58. Submodules
+carry the Flax names (Conv_0, Dense_0, ...), so a parameter "Conv_0.weight"
+is the Flax leaf params["Conv_0"]["kernel"] in torch layout
+(models/carrier.py converts).
+
+CNN_MNIST (src/models.py:11-31), 1,199,882 params:
+  28x28x1 -conv3x3(32)-> 26 -conv3x3(64)-> 24 -pool2-> 12 -> flatten 9216
+  -> dropout(.5) -> fc 128 -> relu -> dropout(.5) -> fc 10
+CNN_CIFAR (src/models.py:33-58): three conv(3x3)+pool stages of 64/128/256
+  -> flatten -> dropout -> fc 128 -> relu -> dropout -> fc 256 -> relu
+  -> dropout -> fc 10
+
+Dropout draws its mask from an explicit `torch.Generator` passed to
+`forward` (None = no dropout, the eval forward), never from torch's global
+RNG. The flatten is CHW-major here and HWC-major in Flax; that is the one
+layout difference the weight carrier has to undo.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+DROPOUT_RATE = 0.5
+
+
+def dropout(x: torch.Tensor, gen: Optional[torch.Generator],
+            rate: float = DROPOUT_RATE) -> torch.Tensor:
+    """Flax `nn.Dropout` arithmetic (keep with prob 1-rate, scale by
+    1/(1-rate)) with the mask drawn from `gen`; identity when gen is None."""
+    if gen is None:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=gen, device=x.device,
+                      dtype=x.dtype) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), device=x.device,
+                                                        dtype=x.dtype))
+
+
+def _flat_features(h: int, w: int, convs: int, pool_each: bool,
+                   width: int) -> int:
+    for _ in range(convs):
+        h, w = h - 2, w - 2
+        if pool_each:
+            h, w = h // 2, w // 2
+    if not pool_each:
+        h, w = h // 2, w // 2
+    return h * w * width
+
+
+class CNN_MNIST(nn.Module):
+    def __init__(self, n_classes: int = 10, image_shape=(28, 28, 1)):
+        super().__init__()
+        h, w, c = image_shape
+        self.Conv_0 = nn.Conv2d(c, 32, 3)
+        self.Conv_1 = nn.Conv2d(32, 64, 3)
+        self.Dense_0 = nn.Linear(_flat_features(h, w, 2, False, 64), 128)
+        self.Dense_1 = nn.Linear(128, n_classes)
+
+    def forward(self, x, dropout_gen: Optional[torch.Generator] = None):
+        x = F.relu(self.Conv_0(x))
+        x = F.relu(self.Conv_1(x))
+        x = F.max_pool2d(x, 2)
+        x = dropout(x.flatten(1), dropout_gen)
+        x = dropout(F.relu(self.Dense_0(x)), dropout_gen)
+        return self.Dense_1(x)
+
+
+class CNN_CIFAR(nn.Module):
+    def __init__(self, n_classes: int = 10, image_shape=(32, 32, 3)):
+        super().__init__()
+        h, w, c = image_shape
+        self.Conv_0 = nn.Conv2d(c, 64, 3)
+        self.Conv_1 = nn.Conv2d(64, 128, 3)
+        self.Conv_2 = nn.Conv2d(128, 256, 3)
+        self.Dense_0 = nn.Linear(_flat_features(h, w, 3, True, 256), 128)
+        self.Dense_1 = nn.Linear(128, 256)
+        self.Dense_2 = nn.Linear(256, n_classes)
+
+    def forward(self, x, dropout_gen: Optional[torch.Generator] = None):
+        for conv in (self.Conv_0, self.Conv_1, self.Conv_2):
+            x = F.max_pool2d(F.relu(conv(x)), 2)
+        x = dropout(x.flatten(1), dropout_gen)
+        x = dropout(F.relu(self.Dense_0(x)), dropout_gen)
+        x = dropout(F.relu(self.Dense_1(x)), dropout_gen)
+        return self.Dense_2(x)

@@ -1,0 +1,133 @@
+"""The experiment driver: seed, data, rounds, eval every `snap` rounds.
+
+Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
+train.py` (`run`, `main`, the `RoundEngine` loop and its `_emit_eval_body`
+rows); reference src/federated.py:21-95. The loop is the JAX one's without
+its chaining, checkpoints, async metrics, faults or service hooks: one round
+per iteration, and at each `snap` boundary the clean and poisoned val sets
+are evaluated and the reference's scalars written to metrics.jsonl.
+
+The run happens on `cfg.device` (default `cuda`). A run on `cuda` with no
+card raises; it never carries on on the CPU.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+import torch
+
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
+    Config, args_parser, print_exp_details)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
+    get_federated_data)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.common import (
+    make_normalizer)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.evaluate import (
+    make_eval_fn, pad_eval_set)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
+    RoundRNG, make_round_fn)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.registry import (
+    get_model, init_params, param_count)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
+    MetricsWriter, run_name)
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} asked for, but torch sees no "
+                           f"CUDA device")
+    return device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(cfg: Config) -> Dict:
+    """Train cfg.rounds rounds; returns the last boundary's summary."""
+    device = resolve_device(cfg.device)
+    print_exp_details(cfg)
+    fed = get_federated_data(cfg)
+    if fed.synthetic:
+        print(f"[data] no {cfg.data} files under {cfg.data_dir!r}: "
+              f"synthetic stand-in, {cfg.synth_train_size} train / "
+              f"{cfg.synth_val_size} val")
+    model = get_model(cfg.data, cfg.image_shape, cfg.n_classes)
+    params = init_params(model, cfg.seed, device)
+    print(f"[model] {type(model).__name__}: {param_count(params):,} params "
+          f"on {device}")
+    normalize = make_normalizer(fed.mean, fed.std, device)
+    images = torch.from_numpy(fed.train.images).to(device)
+    labels = torch.from_numpy(fed.train.labels).to(device, torch.int64)
+    round_fn = make_round_fn(cfg, model, normalize, images, labels,
+                             fed.train.sizes)
+    eval_fn = make_eval_fn(model, normalize, cfg.n_classes)
+    val, pval = (tuple(torch.from_numpy(a).to(device)
+                       for a in pad_eval_set(x, y, cfg.eval_bs))
+                 for x, y in ((fed.val_images, fed.val_labels),
+                              (fed.pval_images, fed.pval_labels)))
+    rng = RoundRNG(cfg.seed, device)
+    summary: Dict = {}
+    cum_poison_acc = 0.0
+    with MetricsWriter(cfg.log_dir, run_name(cfg)) as writer:
+        _sync(device)
+        t_loop = time.perf_counter()
+        t_steady = None
+        for rnd in range(1, cfg.rounds + 1):
+            params, info = round_fn(params, rng)
+            if rnd == 1:
+                # the first round pays the one-off costs (kernel build,
+                # cuDNN plans, allocator growth); steady time starts after
+                _sync(device)
+                t_steady = time.perf_counter()
+            if rnd % cfg.snap:
+                continue
+            val_loss, val_acc, per_class = eval_fn(params, *val)
+            poison_loss, poison_acc, _ = eval_fn(params, *pval)
+            # the one host sync of a boundary: every scalar comes back here
+            vals = {k: float(v) for k, v in (
+                ("val_loss", val_loss), ("val_acc", val_acc),
+                ("base_acc", per_class[cfg.base_class]),
+                ("poison_loss", poison_loss), ("poison_acc", poison_acc),
+                ("train_loss", info["train_loss"]))}
+            now = time.perf_counter()
+            elapsed = now - t_loop
+            cum_poison_acc += vals["poison_acc"]
+            # scalar names preserved from reference src/federated.py:81-91
+            writer.scalar("Validation/Loss", vals["val_loss"], rnd)
+            writer.scalar("Validation/Accuracy", vals["val_acc"], rnd)
+            writer.scalar("Poison/Base_Class_Accuracy", vals["base_acc"], rnd)
+            writer.scalar("Poison/Poison_Accuracy", vals["poison_acc"], rnd)
+            writer.scalar("Poison/Poison_Loss", vals["poison_loss"], rnd)
+            writer.scalar("Poison/Cumulative_Poison_Accuracy_Mean",
+                          cum_poison_acc / rnd, rnd)
+            writer.scalar("Train/Loss", vals["train_loss"], rnd)
+            writer.scalar("Throughput/Rounds_Per_Sec", rnd / elapsed, rnd)
+            writer.flush()
+            print(f"| Rnd {rnd}: Val_Loss/Val_Acc: {vals['val_loss']:.3f} / "
+                  f"{vals['val_acc']:.3f} |")
+            print(f"| Rnd {rnd}: Poison Loss/Poison Acc: "
+                  f"{vals['poison_loss']:.3f} / {vals['poison_acc']:.3f} |")
+            summary = {"round": rnd, "rounds_per_sec": rnd / elapsed,
+                       "steady_rounds_per_sec": ((rnd - 1) / (now - t_steady)
+                                                 if rnd > 1 else None),
+                       **vals}
+    print("Training has finished!")
+    if summary:
+        print(f"[throughput] {summary['rounds_per_sec']:.3f} rounds/sec "
+              f"on {device}, eval included")
+    summary["params"] = params
+    return summary
+
+
+def main(argv=None) -> int:
+    run(args_parser(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
