@@ -3,28 +3,43 @@
     python3 chip_smoke.py
 
 Drives the port (`defending_against_backdoors_with_robust_learning_rate_tpu_torch`,
-never the JAX package) through five phases and exits non-zero if any fails:
+never the JAX package) through eight phases and exits non-zero if any
+fails:
 
 1. build: prints the card's name and power limit (nvidia-smi) and builds
-   every hand-written kernel of the main path from the checkout's sources,
-   timing the build.
-2. kernels: holds each kernel against its plain PyTorch version on the card
-   at the shapes the main path gives it, and times kernel and plain version
+   every hand-written kernel (K1 and K2, one build) from the checkout's
+   sources, timing the build.
+2. kernels: holds K1 against its plain PyTorch version on the card at the
+   shapes the dense round gives it, and times kernel and plain version
    with CUDA events (median over 50 launches after warm-up, L2 flushed
    before each, as the round finds the updates) beside the least time the
    card needs for the bytes the kernel must move.
-3. main path: the FMNIST triple at full width (CNN_MNIST, K=10 agents all
+3. k2: the same for K2 (the sharded round's per-rank partials) at every
+   CNN_MNIST leaf with m/d = 2 and 5, timed at m/d = 2, with the nearest
+   composite of PyTorch calls beside it.
+4. main path: the FMNIST triple at full width (CNN_MNIST, K=10 agents all
    sampled, 2 local epochs of bs 256, FedAvg; clean, then 1 corrupt agent
    poisoning half its base-class samples, then that attack with RLR
    threshold 4) for a few rounds each through `train.run`, on synthetic
    data at FMNIST's scale when no FMNIST is on disk, TF32 off. The kernel
    launch counts are set to 0 just before and read just after: a kernel of
    the path that did not launch fails the run.
-4. server parity: for one round's real updates, the kernel's new params vs
-   the plain server step's (ops/aggregate.py).
-5. profile: one attack + RLR round timed unprofiled, then under
+5. server parity: for one round's real updates, K1's new params vs the
+   plain server step's (ops/aggregate.py).
+6. profile: one attack + RLR round timed unprofiled, then under
    torch.profiler: the card's busy time and idle share, and the kernels
    that take the most of it.
+7. sharded: the attack + RLR run through `train.run` on d = 5 ranks of 2
+   agents each (what pick_agent_mesh_size gives m = 10 on 8 cards), as
+   spawned processes sharing cuda:0 over gloo (NCCL takes one rank per
+   card), cuDNN deterministic and TF32 off. Each rank's counts are set to
+   0 just before its run and read just after: every rank must launch K2 on
+   every leaf of every round and make the leaf plan's 18 all_reduces a
+   round. Then rounds/s and one profiled rank's idle share; round 1 from
+   the seed against the dense round; and one round's updates through the
+   sharded server step against K1 on the whole stack.
+8. nccl d=1: one sharded round at d = 1 over NCCL in a process of its
+   own, configured by the flags a multi-card launch passes.
 
 The last two lines of standard output are one JSON object per kernel
 (`{"kernels": [...]}`) and `{"ok": true, "device": {...}}`. Without a CUDA
@@ -35,6 +50,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import socket
+import statistics
 import subprocess
 import sys
 import time
@@ -47,6 +65,9 @@ DEVICE = "cuda"
 ROUNDS = 4
 M = 10                      # agents per round on the main path
 TOL = 1e-5                  # avg mode: f32 sums in another order
+SHARDED_RANKS = 5           # pick_agent_mesh_size(8, 10, 8): 2 agents each
+SHARDED_ROUNDS = 3
+SHARDED_DIR = "build/chip_smoke/sharded"
 # device memory rate by card name (NVIDIA data sheets); FP32 rate outside
 # the tensor cores
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
@@ -181,6 +202,84 @@ def phase_kernels(rlr_fused, record) -> None:
                   bound_by=bound_by, library_ms=None)
 
 
+def partial_bytes_ops(mb: int, n: int):
+    """K2 on one [mb, n] block: bytes it must move (u and wn read once, two
+    outputs written once) and its operations (sign, add, multiply-add)."""
+    return 4 * (mb * n + mb + 2 * n), 3 * mb * n
+
+
+def phase_k2(rlr_fused, record) -> None:
+    """K2 against its plain version, then its time at the sharded main
+    path's shapes (m/d = 2) beside its bound, the plain version and the
+    nearest composite of PyTorch calls."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+    err = 0.0
+    shapes = leaf_shapes()
+    cases = [(4, 300), (10, 5000), (7, 1111)] + [
+        (mb, math.prod(s)) for s in shapes.values() for mb in (2, 5)]
+    for m, n in cases:
+        u = torch.randn(m, n, generator=gen, device=dev)
+        u[0, :5] = 0.0                      # sign(0) votes for no side
+        w = torch.rand(m, generator=gen, device=dev) * 4 + 1
+        wn = w / (w.sum() * 2)              # a global total over 2 blocks
+        got_s, got_w = rlr_fused.rlr_partial(u, wn)
+        want_s, want_w = rlr_fused.rlr_partial_reference(u, wn)
+        torch.cuda.synchronize()
+        # sums of +-1 and 0 round nowhere: exact
+        torch.testing.assert_close(got_s, want_s, atol=0, rtol=0)
+        torch.testing.assert_close(got_w, want_w, atol=TOL, rtol=TOL)
+        err = max(err, float((got_w - want_w).abs().max()))
+    log(f"[k2] {len(cases)} cases (test_pallas shapes + every CNN_MNIST "
+        f"leaf at m/d = 2 and 5): sign sum exact, max |kernel - plain| of "
+        f"the weighted sum {err:.3e} (tolerance {TOL})")
+
+    name = torch.cuda.get_device_name(0)
+    rate = hbm_rate(name)
+    mb = M // SHARDED_RANKS
+    ups = {k: torch.randn((mb,) + s, generator=gen, device=dev) * 1e-2
+           for k, s in shapes.items()}
+    wn = torch.full((mb,), 1.0 / M, device=dev)
+    scratch = torch.empty(64 * 2 ** 20, device=dev)     # 256 MB > L2
+
+    def flush():
+        scratch.zero_()
+
+    def composite(u):
+        return torch.sign(u).sum(0), torch.mv(u.t(), wn)
+
+    log(f"[k2-time] leaf, n, kernel_ms, plain_ms, composite_ms, bound_ms "
+        f"(m/d={mb}, L2 flushed; {name}, {rate / 1e12:.2f} TB/s):")
+    total_bytes = total_ops = 0
+    for k, s in shapes.items():
+        n = math.prod(s)
+        u = ups[k].view(mb, -1)
+        nbytes, nops = partial_bytes_ops(mb, n)
+        total_bytes += nbytes
+        total_ops += nops
+        k_ms = time_ms(lambda: rlr_fused.rlr_partial(u, wn), flush)
+        p_ms = time_ms(lambda: rlr_fused.rlr_partial_reference(u, wn), flush)
+        c_ms = time_ms(lambda: composite(u), flush)
+        log(f"[k2-time]   {k:16s} {n:8d} {k_ms:.4f} {p_ms:.4f} {c_ms:.4f} "
+            f"{nbytes / rate * 1e3:.4f}")
+    views = [ups[k].view(mb, -1) for k in shapes]
+    k_ms = time_ms(lambda: [rlr_fused.rlr_partial(u, wn) for u in views],
+                   flush)
+    p_ms = time_ms(lambda: [rlr_fused.rlr_partial_reference(u, wn)
+                            for u in views], flush)
+    c_ms = time_ms(lambda: [composite(u) for u in views], flush)
+    bound_ms = max(total_bytes / rate, total_ops / FP32_FLOPS) * 1e3
+    bound_by = ("bytes" if total_bytes / rate >= total_ops / FP32_FLOPS
+                else "operations")
+    log(f"[k2-time] per round per rank ({len(shapes)} launches, m/d={mb}): "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, composite "
+        f"torch.sign(u).sum(0) + torch.mv(u.t(), wn) {c_ms:.4f} ms (two "
+        f"calls: no single PyTorch call computes K2), bound {bound_ms:.4f} "
+        f"ms ({bound_by}, {total_bytes / 1e6:.1f} MB)")
+    record.update(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=None, composite_ms=c_ms)
+
+
 def triple():
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
         Config)
@@ -257,16 +356,13 @@ def phase_server_parity(rlr_fused, record, st) -> None:
     """One round's real updates: kernel server step vs plain server step."""
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
         rounds)
-    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.client import (
-        draw_perms, make_local_train)
 
     cfg, fed, params, rng = st["cfg"], st["fed"], st["params"], st["rng"]
     sampled = rounds.sample_agents(cfg, rng.host).tolist()
-    perms = [draw_perms(int(fed.train.sizes[a]), st["images"].shape[1],
-                        cfg.local_ep, rng.device, DEVICE) for a in sampled]
-    updates, _ = rounds.train_agents(
-        make_local_train(st["model"], cfg, st["norm"]), params, st["images"],
-        st["labels"], fed.train.sizes, sampled, perms, rng.device)
+    updates, _ = rounds.make_block_trainer(
+        cfg, st["model"], st["norm"], st["images"], st["labels"],
+        fed.train.sizes)(params, rng, rng.next_round(), sampled, 0,
+                         len(sampled))
     sizes = torch.as_tensor(fed.train.sizes[sampled], device=DEVICE)
     worst = 0.0
     for aggr, thr in (("avg", 4), ("avg", 0), ("sign", 4)):
@@ -323,12 +419,375 @@ def phase_profile(st) -> None:
         raise AssertionError("the profiled round launched no rlr_fused kernel")
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_cfg():
+    return triple()["attack_rlr4"].replace(
+        rounds=SHARDED_ROUNDS, snap=SHARDED_ROUNDS,
+        log_dir="build/chip_smoke/logs_sharded")
+
+
+def parity_setup(cfg, device):
+    """Data, model, normalizer and the round's init params on `device`."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
+        get_federated_data)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        common)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry)
+    fed = get_federated_data(cfg)
+    model = registry.get_model(cfg.data, cfg.image_shape)
+    return dict(fed=fed, model=model,
+                norm=common.make_normalizer(fed.mean, fed.std, device),
+                images=torch.from_numpy(fed.train.images).to(device),
+                labels=torch.from_numpy(fed.train.labels).to(device,
+                                                             torch.int64),
+                params0=registry.init_params(model, cfg.seed, device))
+
+
+def parity_variants(cfg):
+    return {f"{aggr}+rlr{thr}": cfg.replace(aggr=aggr, robustLR_threshold=thr)
+            for aggr, thr in (("avg", 4), ("avg", 0), ("sign", 4))}
+
+
+def _strict_numerics() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def sharded_rank(rank: int, world: int, port: int) -> None:
+    """One rank of the sharded phase (a spawned process on cuda:0, gloo):
+    the sharded attack + RLR run through train.run with its counts set to
+    0 just before and read just after, one timed and (on rank 0) profiled
+    round, then round 1 again from the seed and its updates through the
+    sharded server step, saved for the parent's comparisons."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
+        train)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import (
+        rlr_fused)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
+        rounds as prounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.mesh import (
+        AgentsGroup)
+
+    _strict_numerics()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        group = AgentsGroup(dist.group.WORLD, "cuda:0")
+        rlr_fused.build()
+        cfg = sharded_cfg()
+        for k in rlr_fused.LAUNCHES:
+            rlr_fused.LAUNCHES[k] = 0
+        group.calls = 0
+        summary = train.run(cfg, group=group)
+        out = {"launches": dict(rlr_fused.LAUNCHES), "calls": group.calls,
+               "summary": {k: v for k, v in summary.items()
+                           if k != "params"}}
+
+        st = parity_setup(cfg, group.device)
+        round_fn = prounds.make_sharded_round_fn(
+            cfg, st["model"], st["norm"], group, st["images"], st["labels"],
+            st["fed"].train.sizes)
+        params, rng = summary["params"], rounds.RoundRNG(cfg.seed + 7,
+                                                         group.device)
+        # host time inside the all_reduces (gloo blocks the host; the
+        # wait for the slowest rank is in it)
+        reduce_s = [0.0]
+        all_reduce = group.all_reduce_sum_
+
+        def timed_all_reduce(t):
+            t0 = time.perf_counter()
+            all_reduce(t)
+            reduce_s[0] += time.perf_counter() - t0
+            return t
+        group.all_reduce_sum_ = timed_all_reduce
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, _ = round_fn(params, rng)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        group.all_reduce_sum_ = all_reduce
+        out["round_ms"] = walls
+        out["all_reduce_ms"] = reduce_s[0] * 1e3 / len(walls)
+        if rank == 0:
+            out["profile"] = profile_round(lambda: round_fn(params, rng))
+        else:
+            round_fn(params, rng)
+
+        # round 1 from the seed, as the dense round runs it in the parent
+        p1, info1 = round_fn(st["params0"], rounds.RoundRNG(cfg.seed,
+                                                            group.device))
+        # the same round's updates through the sharded server step
+        rng = rounds.RoundRNG(cfg.seed, group.device)
+        rnd = rng.next_round()
+        sampled = rounds.sample_agents(cfg, rng.host).tolist()
+        mb = cfg.agents_per_round // world
+        lo, hi = rank * mb, (rank + 1) * mb
+        updates, _ = rounds.make_block_trainer(
+            cfg, st["model"], st["norm"], st["images"], st["labels"],
+            st["fed"].train.sizes)(st["params0"], rng, rnd, sampled, lo, hi)
+        sizes = torch.as_tensor(st["fed"].train.sizes[sampled[lo:hi]],
+                                device=group.device)
+        steps = {label: prounds.sharded_server_step(st["params0"], updates,
+                                                    sizes, c, group)
+                 for label, c in parity_variants(cfg).items()}
+        cpu = lambda t: {k: v.cpu() for k, v in t.items()}  # noqa: E731
+        out.update(sampled=sampled, updates=cpu(updates),
+                   train_loss1=float(info1["train_loss"]))
+        if rank == 0:
+            out.update(params1=cpu(p1),
+                       steps={k: cpu(v) for k, v in steps.items()})
+        torch.save(out, f"{SHARDED_DIR}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def profile_round(fn):
+    """Wall time of one call of fn under torch.profiler, this process's card
+    busy time in it, its idle share, and the kernels taking the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(t for _, t in by_name.values())
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "kernels": sum(n for n, _ in by_name.values()),
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]}
+
+
+def run_children(target, args_list, timeout_s: float) -> None:
+    """Start one spawned process per args tuple, wait for all within
+    timeout_s, stop any left, and fail unless every one exited with 0."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in args_list]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"child processes exited with {codes}")
+
+
+def phase_sharded(rlr_fused, record, st) -> None:
+    """d = 5 ranks, 2 agents each, as spawned processes on cuda:0 over gloo:
+    the full-width attack + RLR run; its kernel launches and all_reduces;
+    its round against the dense round; its server step against K1 on the
+    same updates; rounds/s and one profiled rank's idle share."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
+        multihost)
+
+    os.makedirs(SHARDED_DIR, exist_ok=True)
+    for f in os.listdir(SHARDED_DIR):
+        os.remove(os.path.join(SHARDED_DIR, f))
+    cfg = sharded_cfg()
+    world = SHARDED_RANKS
+    t0 = time.perf_counter()
+    port = free_port()
+    run_children(sharded_rank, [(r, world, port) for r in range(world)], 600)
+    log(f"[sharded] {world} ranks x {M // world} agents on one card (gloo), "
+        f"{cfg.rounds} rounds + 4 more: all exited 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(f"{SHARDED_DIR}/rank{r}.pt") for r in range(world)]
+
+    # the main path: every rank launched K2 on every leaf of every round,
+    # never K1, and made the leaf plan's all_reduces
+    n_leaves = len(leaf_shapes())
+    plan = multihost.leaf_plan_collectives(cfg, n_leaves)
+    for r, out in enumerate(ranks):
+        log(f"[sharded] rank {r}: {out['launches']} launches, "
+            f"{out['calls']} all_reduces in {cfg.rounds} rounds")
+        if out["launches"]["rlr_partial"] != cfg.rounds * n_leaves:
+            raise AssertionError(f"rank {r} launched rlr_partial "
+                                 f"{out['launches']['rlr_partial']} times, "
+                                 f"expected {cfg.rounds * n_leaves}")
+        if out["launches"]["rlr_fused"]:
+            raise AssertionError(f"rank {r} launched K1 on the sharded path")
+        if out["calls"] != cfg.rounds * plan:
+            raise AssertionError(f"rank {r}: {out['calls']} all_reduces, "
+                                 f"the leaf plan makes {plan} a round")
+    lead = ranks[0]["summary"]
+    for key in ("train_loss", "val_acc", "val_loss", "poison_acc",
+                "poison_loss", "rounds_per_sec"):
+        if not math.isfinite(lead[key]):
+            raise AssertionError(f"sharded run: {key} = {lead[key]}")
+    if lead["hlth_nonfinite"] != 0 or lead["hlth_params_finite"] != 1:
+        raise AssertionError(f"sharded run's health lanes: {lead}")
+    round_ms = [statistics.mean(out["round_ms"]) for out in ranks]
+    prof = ranks[0]["profile"]
+    log(f"[sharded] {plan} all_reduces per round (leaf plan, {n_leaves} "
+        f"leaves); rounds/s {lead['rounds_per_sec']:.3f} with eval "
+        f"({lead['steady_rounds_per_sec']:.3f} after round 1), "
+        f"{1e3 / max(round_ms):.3f} for two more rounds without eval "
+        f"(slowest rank {max(round_ms):.1f} ms a round); train_loss "
+        f"{lead['train_loss']:.4f}, val_acc {lead['val_acc']:.4f}, "
+        f"poison_acc {lead['poison_acc']:.4f}, update norm "
+        f"{math.sqrt(lead['hlth_update_normsq']):.4f}")
+    reduce_ms = ", ".join(f"{out['all_reduce_ms']:.1f}" for out in ranks)
+    log(f"[sharded] host time inside the {plan} all_reduces of a round, "
+        f"ranks 0-{world - 1} (the wait for the slowest rank included): "
+        f"{reduce_ms} ms")
+    log(f"[sharded] profiled rank 0: wall {prof['wall_ms']:.1f} ms, its "
+        f"kernels busy {prof['busy_ms']:.1f} ms in {prof['kernels']} "
+        f"launches, idle share {1 - prof['busy_ms'] / prof['wall_ms']:.3f} "
+        f"(this rank's own kernels; four more ranks share the card)")
+    for name, (n, t) in prof["top"]:
+        log(f"[sharded]   {t:9.2f} ms {n:6d}x  {name[:90]}")
+    record["launches"] = sum(out["launches"]["rlr_partial"] for out in ranks)
+
+    # round 1 from the seed: sharded vs dense (same slot draws)
+    if any(out["sampled"] != ranks[0]["sampled"] for out in ranks):
+        raise AssertionError("ranks sampled different agents")
+    strict = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    _strict_numerics()
+    try:
+        dense1, dinfo = rounds.make_round_fn(
+            cfg, st["model"], st["norm"], st["images"], st["labels"],
+            st["fed"].train.sizes)(st["params"], rounds.RoundRNG(cfg.seed,
+                                                                  DEVICE))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = strict
+    diff = max(float((dense1[k].cpu() - v).abs().max())
+               for k, v in ranks[0]["params1"].items())
+    loss_rel = abs(ranks[0]["train_loss1"] - float(dinfo["train_loss"])) / abs(
+        float(dinfo["train_loss"]))
+    log(f"[sharded] round 1 from the seed, sharded vs dense (the same slot "
+        f"draws, cuDNN deterministic, TF32 off): max |params diff| "
+        f"{diff:.3e} (tolerance {TOL}), train_loss rel diff {loss_rel:.3e} "
+        f"(tolerance 1e-4)")
+    # local training runs the same kernels on the same card; only the
+    # server step's weighted sum is taken in another order
+    if diff > TOL or loss_rel > 1e-4:
+        raise AssertionError("the sharded round left the dense round")
+
+    # the same updates: K2 + all_reduce + apply vs K1 on the whole stack
+    sampled = ranks[0]["sampled"]
+    full = {k: torch.cat([out["updates"][k] for out in ranks]).to(DEVICE)
+            for k in ranks[0]["updates"]}
+    sizes = torch.as_tensor(st["fed"].train.sizes[sampled], device=DEVICE,
+                            dtype=torch.float32)
+    worst = 0.0
+    for label, c in parity_variants(cfg).items():
+        k1 = rlr_fused.fused_rlr_avg_apply(
+            st["params"], full, sizes, float(c.robustLR_threshold),
+            c.effective_server_lr, mode=c.aggr)
+        for k, v in ranks[0]["steps"][label].items():
+            got = v.to(DEVICE)
+            if c.aggr == "sign":
+                torch.testing.assert_close(got, k1[k], atol=0, rtol=0)
+            torch.testing.assert_close(got, k1[k], atol=TOL, rtol=TOL)
+            worst = max(worst, float((got - k1[k]).abs().max()))
+    log(f"[sharded] one round's real updates, K2 + all_reduce + apply on "
+        f"{world} ranks vs K1 on the whole stack, avg+RLR4 / avg / "
+        f"sign+RLR4: max |diff| {worst:.3e} (sign exact, avg within {TOL})")
+    record["max_abs_err"] = max(record["max_abs_err"], worst)
+
+
+def nccl_child(port: int) -> None:
+    """One round of the sharded run at d = 1 over NCCL, configured by the
+    CLI flags a multi-card launch passes (--coordinator, --num_processes,
+    --process_id, --mesh)."""
+    import torch.distributed as dist
+
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
+        train)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
+        args_parser)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import (
+        rlr_fused)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
+        multihost)
+
+    _strict_numerics()
+    argv = ["--data", "fmnist", "--num_agents", str(M), "--local_ep", "2",
+            "--bs", "256", "--num_corrupt", "1", "--poison_frac", "0.5",
+            "--robustLR_threshold", "4", "--rounds", "1", "--snap", "1",
+            "--synth_train_size", "60000", "--synth_val_size", "10000",
+            "--log_dir", "build/chip_smoke/logs_nccl", "--mesh", "0",
+            "--coordinator", f"localhost:{port}", "--num_processes", "1",
+            "--process_id", "0"]
+    for k in rlr_fused.LAUNCHES:
+        rlr_fused.LAUNCHES[k] = 0
+    try:
+        summary = train.run(args_parser(argv))
+        out = {"launches": dict(rlr_fused.LAUNCHES),
+               "backend": dist.get_backend(),
+               "summary": {k: v for k, v in summary.items()
+                           if k != "params"}}
+    finally:
+        multihost.shutdown()
+    torch.save(out, f"{SHARDED_DIR}/nccl.pt")
+
+
+def phase_nccl() -> None:
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
+        multihost)
+
+    run_children(nccl_child, [(free_port(),)], 300)
+    out = torch.load(f"{SHARDED_DIR}/nccl.pt")
+    s = out["summary"]
+    plan = multihost.leaf_plan_collectives(sharded_cfg(), len(leaf_shapes()))
+    log(f"[nccl] d=1 over {out['backend']}, one round: {out['launches']} "
+        f"launches, {s['all_reduces']} all_reduces (plan {plan}), "
+        f"train_loss {s['train_loss']:.4f}, val_acc {s['val_acc']:.4f}")
+    if (out["backend"] != "nccl" or s["all_reduces"] != plan
+            or out["launches"]["rlr_partial"] != len(leaf_shapes())
+            or out["launches"]["rlr_fused"]
+            or not math.isfinite(s["train_loss"])):
+        raise AssertionError(f"the NCCL d=1 round: {out}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # deterministic cuBLAS (read when its handle is made, and by the
+    # spawned ranks): the sharded phase compares rounds across processes
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import (
         rlr_fused)
 
@@ -336,6 +795,10 @@ def main() -> int:
               "source": f"{PKG}/csrc/rlr_fused.cu",
               "replaces": "defending_against_backdoors_with_robust_learning_"
                           "rate_tpu/ops/pallas_rlr.py:57"}
+    record2 = {"name": "rlr_partial", "route": "cuda",
+               "source": f"{PKG}/csrc/rlr_partial.cu",
+               "replaces": "defending_against_backdoors_with_robust_"
+                           "learning_rate_tpu/ops/pallas_rlr.py:130"}
     st = {}
 
     def server_parity():
@@ -344,10 +807,13 @@ def main() -> int:
 
     phases = (("build", lambda: phase_build(rlr_fused)),
               ("kernels", lambda: phase_kernels(rlr_fused, record)),
+              ("k2", lambda: phase_k2(rlr_fused, record2)),
               ("main path", lambda: record.update(
                   launches=phase_main_path(rlr_fused))),
               ("server parity", server_parity),
-              ("profile", lambda: phase_profile(st)))
+              ("profile", lambda: phase_profile(st)),
+              ("sharded", lambda: phase_sharded(rlr_fused, record2, st)),
+              ("nccl d=1", phase_nccl))
     for label, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -358,9 +824,10 @@ def main() -> int:
             return 1
         log(f"[phase] {label}: ok in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
-        k: record[k] for k in ("name", "route", "source", "replaces",
-                               "launches", "max_abs_err", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms")}]}))
+        k: r[k] for k in ("name", "route", "source", "replaces", "launches",
+                          "max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms")} for r in (record,
+                                                               record2)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,10 +13,16 @@ FedAvg with the RLR vote):
     data/       synthetic + FMNIST idx data, label-sorted partition, stacks
     attack/     trojan stamps + poisoning
     models/     CNN_MNIST / CNN_CIFAR (NCHW) + the Flax weight carrier
-    ops/        sgd/clip/PGD, aggregation rules, the fused RLR server kernel
+    ops/        sgd/clip/PGD, aggregation rules, the RLR server kernels
     fl/         local training, the round, eval
     utils/      run name + JSONL metrics
     train.py    the round loop and `main(argv)`
+
+Slice 2 ports the sharded round and the in-round health lanes:
+
+    parallel/   the `agents` process group, the multi-card launch, the
+                sharded round with the per-rank partial-vote kernel
+    health/     the in-round health lanes
 
 Hand-written kernel sources live in `csrc/` and are built on first use into
 `build/torch_ext/` at the repository root.

@@ -1,5 +1,6 @@
 """Main-path configuration: the JAX CLI's flag names and defaults, cut to
-the fields slice 1 runs.
+the fields the port runs (slice 1's dense round, slice 2's sharded round
+and health lanes).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
@@ -23,7 +24,9 @@ import dataclasses
 import math
 from typing import Optional
 
-AGGRS = ("avg", "sign")     # the rules this slice ports (ops/aggregate.py)
+AGGRS = ("avg", "sign")     # the rules the port has (ops/aggregate.py)
+AGG_LAYOUTS = ("leaf", "bucket")    # JAX's choices; bucket is not ported
+HEALTH_LEVELS = ("on", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +58,14 @@ class Config:
     synth_train_size: int = 2048
     synth_val_size: int = 512
     synth_hardness: float = 0.0
+    # --- multi-card (JAX parallel/multihost.py, parallel/mesh.py) ---
+    coordinator: str = ""           # host:port of rank 0's rendezvous
+    num_processes: int = 0          # total processes (one per card)
+    process_id: int = -1            # this process's rank; -1 = from env
+    mesh: int = 1                   # ranks on the `agents` axis; 0 = all
+    agg_layout: str = "leaf"        # leaf (per-leaf all_reduces) | bucket
+    # --- in-round health lanes (JAX health/sentinel.py) ---
+    health: str = "on"              # on | off
     # --- port-only ---
     device: str = "cuda"
     use_fused: bool = True
@@ -103,13 +114,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def args_parser(argv: Optional[list] = None) -> Config:
-    """Parse CLI flags into a Config (JAX `config.args_parser`)."""
+    """Parse CLI flags into a Config (JAX `config.args_parser`), refusing
+    what the port does not run yet and naming the missing piece."""
     ns = build_parser().parse_args(argv)
     kw = {k: v for k, v in vars(ns).items() if k != "no_fused"}
     cfg = Config(use_fused=not ns.no_fused, **kw)
     if cfg.aggr not in AGGRS:
         raise ValueError(f"--aggr {cfg.aggr!r} is not ported yet "
-                         f"(slice 1 has {AGGRS})")
+                         f"(the port has {AGGRS})")
+    if cfg.agg_layout not in AGG_LAYOUTS:
+        raise ValueError(f"--agg_layout must be one of {AGG_LAYOUTS}, got "
+                         f"{cfg.agg_layout!r}")
+    if cfg.agg_layout == "bucket":
+        raise ValueError("--agg_layout bucket (parallel/buckets.py: "
+                         "reduce_scatter + all_gather) is not ported yet; "
+                         "the port has the leaf layout")
+    if cfg.health not in HEALTH_LEVELS:
+        raise ValueError(f"--health must be one of {HEALTH_LEVELS}, got "
+                         f"{cfg.health!r}")
     return cfg
 
 
@@ -131,5 +153,5 @@ def print_exp_details(cfg: Config) -> None:
     print(f"    Poison Frac: {cfg.poison_frac}")
     print(f"    Clip: {cfg.clip}")
     print(f"    Seed: {cfg.seed}  Device: {cfg.device}  "
-          f"Fused server step: {cfg.use_fused}")
+          f"Fused server step: {cfg.use_fused}  Mesh: {cfg.mesh}")
     print("======================================")

@@ -1,1 +1,1 @@
-"""Slice-1 port; see the package docstring."""
+"""Local training, the rounds and eval; see the package docstring."""

@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 
 
-def make_normalizer(mean, std, device="cpu"):
+def make_normalizer(mean, std, device):
     """Raw NHWC pixels -> normalized NCHW float32 model input:
     (x/255 - mean)/std with the reference constants (src/utils.py:101,
     113-116). The JAX normalizer keeps NHWC for its NHWC model; this one

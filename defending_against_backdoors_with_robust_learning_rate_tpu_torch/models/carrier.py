@@ -34,7 +34,7 @@ def _flatten_geometry(flax_params) -> tuple:
     return math.isqrt(fan_in // c), c
 
 
-def params_from_flax(flax_params, device="cpu") -> Dict[str, torch.Tensor]:
+def params_from_flax(flax_params, device) -> Dict[str, torch.Tensor]:
     """{"Conv_0": {"kernel", "bias"}, ...} of numpy -> {"Conv_0.weight": ...}."""
     h, c = _flatten_geometry(flax_params)
     out = {}

@@ -36,7 +36,7 @@ def get_model(data: str, image_shape, n_classes: int = 10):
     raise ValueError(f"no model for data={data!r}")
 
 
-def init_params(model, seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+def init_params(model, seed: int, device) -> Dict[str, torch.Tensor]:
     """Flax's default init in torch layout: kernels lecun_normal, biases 0,
     drawn in parameter order from a CPU generator seeded with `seed` (so the
     values do not depend on the device), then moved to `device`."""

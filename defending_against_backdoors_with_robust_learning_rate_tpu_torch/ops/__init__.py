@@ -1,1 +1,2 @@
-"""Slice-1 port; see the package docstring."""
+"""Tree arithmetic, optimizer ops, server rules and the RLR kernels; see
+the package docstring."""

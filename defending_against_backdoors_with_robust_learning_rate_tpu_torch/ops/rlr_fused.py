@@ -1,8 +1,10 @@
-"""The fused RLR vote + FedAvg + apply server step: kernel K1 of the port.
+"""The RLR server kernels: the fused vote + FedAvg + apply step (K1) and
+the per-rank partial vote + weighted sum of the sharded step (K2).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 ops/pallas_rlr.py` (`_kernel`, `_fused_leaf`, `fused_rlr_avg_apply_flat`,
-`fused_rlr_avg_apply`). Per coordinate j over the m sampled agents' updates:
+`fused_rlr_avg_apply`; `_partial_kernel`, `partial_vote_avg_flat`). K1, per
+coordinate j over the m sampled agents' updates:
 
     s_j   = sum_i sign(U_ij)
     lr_j  = +server_lr if |s_j| >= threshold else -server_lr  (threshold <= 0:
@@ -22,6 +24,14 @@ that its server step went through the kernel.
 The kernel reads each leaf's update stack in place, as an [m, n_leaf] view
 of the [m, ...] stack, and writes only the new parameters; it is bound by
 the (m + 2) * n * 4 bytes it moves (csrc/rlr_fused.cu says how).
+
+K2, `rlr_partial` (public name `partial_vote_avg_flat`, as in JAX), runs one
+rank's [m/d, n_leaf] block of the sharded round and returns
+(sign_sum[n], weighted_sum[n]) with wn already divided by the global weight
+total; parallel/rounds.py all_reduces both and applies. On a CUDA tensor it
+launches `csrc/rlr_partial.cu` (same build as K1) or raises; on a CPU tensor
+it runs `rlr_partial_reference`. `LAUNCHES["rlr_partial"]` counts its
+launches. It moves (m/d + 2) * n * 4 bytes.
 """
 
 from __future__ import annotations
@@ -38,11 +48,12 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.tree im
 
 MODES = ("avg", "sign")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (CSRC / "rlr_fused_binding.cpp", CSRC / "rlr_fused.cu")
+SOURCES = (CSRC / "rlr_fused_binding.cpp", CSRC / "rlr_fused.cu",
+           CSRC / "rlr_partial.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
-LAUNCHES = {"rlr_fused": 0}
+LAUNCHES = {"rlr_fused": 0, "rlr_partial": 0}
 
 
 @functools.cache
@@ -71,16 +82,23 @@ def rlr_fused_reference(u: torch.Tensor, wn: torch.Tensor, p: torch.Tensor,
     return p + lr * agg
 
 
+def _check_tensors(what, *ts):
+    u = ts[0]
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} takes float32, got {t.dtype}")
+        if t.device != u.device:
+            raise ValueError(f"{what}: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {u.device}")
+
+
 def _check(u, wn, p, mode):
     if mode not in MODES:
         raise ValueError(f"unsupported mode {mode!r}")
-    for t in (u, wn, p):
-        if t.dtype != torch.float32:
-            raise TypeError(f"rlr_fused takes float32, got {t.dtype}")
-        if t.device != u.device:
-            raise ValueError("rlr_fused: tensors on different devices")
-        if not t.is_contiguous():
-            raise ValueError("rlr_fused: tensors must be contiguous")
+    _check_tensors("rlr_fused", u, wn, p)
     if (u.ndim != 2 or wn.shape != (u.shape[0],) or p.shape != (u.shape[1],)
             or u.numel() == 0):
         raise ValueError(f"rlr_fused: expected u[m, n], wn[m], p[n] with "
@@ -96,8 +114,6 @@ def rlr_fused(u: torch.Tensor, wn: torch.Tensor, p: torch.Tensor,
     _check(u, wn, p, mode)
     if u.device.type == "cpu":
         return rlr_fused_reference(u, wn, p, threshold, server_lr, mode)
-    if u.device.type != "cuda":
-        raise ValueError(f"rlr_fused runs on cuda or cpu, not {u.device}")
     out = build().rlr_fused(u, wn, p, float(threshold), float(server_lr),
                             threshold > 0, mode == "sign")
     LAUNCHES["rlr_fused"] += 1
@@ -132,3 +148,33 @@ def fused_rlr_avg_apply(params: Params, stacked_updates: Params, weights,
         out[k] = rlr_fused(u.view(u.shape[0], -1), wn, p.view(-1), threshold,
                            server_lr, mode).view(p.shape)
     return out
+
+
+def rlr_partial_reference(u: torch.Tensor, wn: torch.Tensor):
+    """The plain PyTorch version of K2: (sign_sum[n], weighted_sum[n]) from
+    u[m, n] and wn[m]."""
+    return torch.sum(torch.sign(u), dim=0), torch.sum(u * wn[:, None], dim=0)
+
+
+def rlr_partial(u: torch.Tensor, wn: torch.Tensor):
+    """K2 on one leaf of one rank's block: u[m_local, n] and wn[m_local],
+    float32 and contiguous."""
+    _check_tensors("rlr_partial", u, wn)
+    if u.ndim != 2 or wn.shape != (u.shape[0],) or u.numel() == 0:
+        raise ValueError(f"rlr_partial: expected u[m, n], wn[m] with "
+                         f"m, n > 0; got {tuple(u.shape)}, {tuple(wn.shape)}")
+    if u.device.type == "cpu":
+        return rlr_partial_reference(u, wn)
+    sign_sum, weighted_sum = build().rlr_partial(u, wn)
+    LAUNCHES["rlr_partial"] += 1
+    return sign_sum, weighted_sum
+
+
+def partial_vote_avg_flat(updates_flat, weights_normalized):
+    """Per-rank partials of the sharded fused server step (JAX
+    `partial_vote_avg_flat`): one pass over the local [m_local, n] update
+    block, giving (sign_sum[n], weighted_sum[n]). `weights_normalized` is
+    [m_local], already divided by the GLOBAL weight total, so the
+    all_reduce of weighted_sum is the global FedAvg."""
+    return rlr_partial(updates_flat,
+                       weights_normalized.to(torch.float32).contiguous())

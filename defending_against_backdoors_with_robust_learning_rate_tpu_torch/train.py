@@ -9,12 +9,21 @@ are evaluated and the reference's scalars written to metrics.jsonl.
 
 The run happens on `cfg.device` (default `cuda`). A run on `cuda` with no
 card raises; it never carries on on the CPU.
+
+--mesh (JAX train.py:332-391): d = pick_agent_mesh_size(--mesh, m, cards).
+On one card d = 1 and the dense round runs, as JAX on one chip. d > 1 is
+one process per card over NCCL, launched by `torchrun` (or with
+--coordinator/--num_processes/--process_id); every rank runs the sharded
+round (parallel/rounds.py) and the lead rank alone evaluates, writes the
+metrics and prints. `run(cfg, group=...)` takes an `agents` group that the
+caller built (the tests' and chip_smoke.py's ranks sharing one device).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -28,10 +37,18 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.evaluate
     make_eval_fn, pad_eval_set)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
     RoundRNG, make_round_fn)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
+    sentinel as health_sentinel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.registry import (
     get_model, init_params, param_count)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
+    multihost)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.mesh import (
+    AgentsGroup, pick_agent_mesh_size)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.rounds import (
+    make_sharded_round_fn)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
-    MetricsWriter, run_name)
+    MetricsWriter, health_rows, run_name)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -47,24 +64,63 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(cfg: Config) -> Dict:
-    """Train cfg.rounds rounds; returns the last boundary's summary."""
-    device = resolve_device(cfg.device)
-    print_exp_details(cfg)
+def _agents_group(cfg: Config) -> Optional[AgentsGroup]:
+    """The `agents` group of a multi-card launch, or None for the dense
+    round. A --mesh that asks for several cards from one process raises:
+    the port runs one process per card."""
+    group = multihost.maybe_initialize(cfg.coordinator, cfg.num_processes,
+                                       cfg.process_id)
+    if group is not None:
+        multihost.require_pod_divisible(cfg.agents_per_round, "multi-card",
+                                        group.size)
+        return group
+    cards = (torch.cuda.device_count()
+             if torch.device(cfg.device).type == "cuda" else 1)
+    d = pick_agent_mesh_size(cfg.mesh, cfg.agents_per_round, cards)
+    if d > 1:
+        raise ValueError(
+            f"--mesh {cfg.mesh} picks {d} cards for m="
+            f"{cfg.agents_per_round}; the port runs one process per card: "
+            f"torchrun --nproc_per_node {d} -m "
+            f"defending_against_backdoors_with_robust_learning_rate_tpu_torch"
+            f" --mesh {cfg.mesh} ...")
+    return None
+
+
+def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
+    """Train cfg.rounds rounds; returns the last boundary's summary (on
+    every rank of a sharded run: its params and the run's count of
+    all_reduces; on the lead: the metrics)."""
+    if group is None:
+        group = _agents_group(cfg)
+    device = group.device if group is not None else resolve_device(
+        cfg.device)
+    lead = multihost.is_lead(group)
+    say = print if lead else (lambda *a, **k: None)
+    if lead:
+        print_exp_details(cfg)
     fed = get_federated_data(cfg)
     if fed.synthetic:
-        print(f"[data] no {cfg.data} files under {cfg.data_dir!r}: "
-              f"synthetic stand-in, {cfg.synth_train_size} train / "
-              f"{cfg.synth_val_size} val")
+        say(f"[data] no {cfg.data} files under {cfg.data_dir!r}: "
+            f"synthetic stand-in, {cfg.synth_train_size} train / "
+            f"{cfg.synth_val_size} val")
     model = get_model(cfg.data, cfg.image_shape, cfg.n_classes)
     params = init_params(model, cfg.seed, device)
-    print(f"[model] {type(model).__name__}: {param_count(params):,} params "
-          f"on {device}")
+    say(f"[model] {type(model).__name__}: {param_count(params):,} params "
+        f"on {device}")
     normalize = make_normalizer(fed.mean, fed.std, device)
     images = torch.from_numpy(fed.train.images).to(device)
     labels = torch.from_numpy(fed.train.labels).to(device, torch.int64)
-    round_fn = make_round_fn(cfg, model, normalize, images, labels,
-                             fed.train.sizes)
+    if group is None:
+        round_fn = make_round_fn(cfg, model, normalize, images, labels,
+                                 fed.train.sizes)
+    else:
+        m = cfg.agents_per_round
+        say(f"[mesh] {group.size} devices on the `agents` axis "
+            f"({m // group.size} agents/device), {group.size} process(es)")
+        say(f"[agg] {multihost.agg_plan_note(cfg, params, group)}")
+        round_fn = make_sharded_round_fn(cfg, model, normalize, group,
+                                         images, labels, fed.train.sizes)
     eval_fn = make_eval_fn(model, normalize, cfg.n_classes)
     val, pval = (tuple(torch.from_numpy(a).to(device)
                        for a in pad_eval_set(x, y, cfg.eval_bs))
@@ -73,7 +129,8 @@ def run(cfg: Config) -> Dict:
     rng = RoundRNG(cfg.seed, device)
     summary: Dict = {}
     cum_poison_acc = 0.0
-    with MetricsWriter(cfg.log_dir, run_name(cfg)) as writer:
+    with (MetricsWriter(cfg.log_dir, run_name(cfg)) if lead
+          else contextlib.nullcontext()) as writer:
         _sync(device)
         t_loop = time.perf_counter()
         t_steady = None
@@ -84,7 +141,7 @@ def run(cfg: Config) -> Dict:
                 # cuDNN plans, allocator growth); steady time starts after
                 _sync(device)
                 t_steady = time.perf_counter()
-            if rnd % cfg.snap:
+            if rnd % cfg.snap or not lead:
                 continue
             val_loss, val_acc, per_class = eval_fn(params, *val)
             poison_loss, poison_acc, _ = eval_fn(params, *pval)
@@ -93,7 +150,9 @@ def run(cfg: Config) -> Dict:
                 ("val_loss", val_loss), ("val_acc", val_acc),
                 ("base_acc", per_class[cfg.base_class]),
                 ("poison_loss", poison_loss), ("poison_acc", poison_acc),
-                ("train_loss", info["train_loss"]))}
+                ("train_loss", info["train_loss"]),
+                *((k, info[k])
+                  for k in health_sentinel.boundary_keys(cfg)))}
             now = time.perf_counter()
             elapsed = now - t_loop
             cum_poison_acc += vals["poison_acc"]
@@ -107,6 +166,8 @@ def run(cfg: Config) -> Dict:
                           cum_poison_acc / rnd, rnd)
             writer.scalar("Train/Loss", vals["train_loss"], rnd)
             writer.scalar("Throughput/Rounds_Per_Sec", rnd / elapsed, rnd)
+            for tag, value in health_rows(vals).items():
+                writer.scalar(tag, value, rnd)
             writer.flush()
             print(f"| Rnd {rnd}: Val_Loss/Val_Acc: {vals['val_loss']:.3f} / "
                   f"{vals['val_acc']:.3f} |")
@@ -116,16 +177,20 @@ def run(cfg: Config) -> Dict:
                        "steady_rounds_per_sec": ((rnd - 1) / (now - t_steady)
                                                  if rnd > 1 else None),
                        **vals}
-    print("Training has finished!")
+    say("Training has finished!")
     if summary:
-        print(f"[throughput] {summary['rounds_per_sec']:.3f} rounds/sec "
-              f"on {device}, eval included")
+        say(f"[throughput] {summary['rounds_per_sec']:.3f} rounds/sec "
+            f"on {device}, eval included")
     summary["params"] = params
+    summary["all_reduces"] = group.calls if group is not None else 0
     return summary
 
 
 def main(argv=None) -> int:
-    run(args_parser(argv))
+    try:
+        run(args_parser(argv))
+    finally:
+        multihost.shutdown()
     return 0
 
 

@@ -5,7 +5,11 @@ utils/metrics.py` (`run_name`, `MetricsWriter`). The scalar tags are the
 reference's TensorBoard names (src/federated.py:81-91); each row is
 {"tag", "value", "step"}, and every run opens with a `_run/start` record,
 so reruns of one config can append to one file and still be split.
-TensorBoard output is not in this slice.
+TensorBoard output is not ported yet.
+
+`HEALTH_TAGS` are the Health/* rows JAX's train.py writes from the in-round
+health lanes (tag names of JAX health/monitor.py:85-87); the loss z-score
+and norm-spike rows wait for the monitor.
 """
 
 from __future__ import annotations
@@ -13,7 +17,27 @@ from __future__ import annotations
 import json
 import os
 import time
+import math
 from typing import Optional
+
+HEALTH_TAGS = {
+    "nonfinite": "Health/Nonfinite_Updates",
+    "params_finite": "Health/Params_Finite",
+    "update_norm": "Health/Update_Norm",
+}
+
+
+def health_rows(vals) -> dict:
+    """{tag: value} of the health lanes in a boundary's host values (empty
+    when the lanes are off): the update norm is the root of the lane's
+    summed square, as JAX health/monitor.assess takes it."""
+    if "hlth_nonfinite" not in vals:
+        return {}
+    nsq = vals["hlth_update_normsq"]
+    return {HEALTH_TAGS["nonfinite"]: vals["hlth_nonfinite"],
+            HEALTH_TAGS["params_finite"]: vals["hlth_params_finite"],
+            HEALTH_TAGS["update_norm"]: (math.sqrt(nsq) if nsq >= 0
+                                         else nsq)}
 
 
 def run_name(cfg) -> str:

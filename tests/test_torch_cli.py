@@ -31,6 +31,11 @@ REFERENCE_TAGS = {
     "Poison/Poison_Accuracy", "Poison/Poison_Loss",
     "Poison/Cumulative_Poison_Accuracy_Mean", "Train/Loss",
     "Throughput/Rounds_Per_Sec"}
+# and, with the health lanes on (the default), the rows JAX's
+# health/monitor.emit_rows writes from them (the monitor's loss z-score and
+# norm-spike rows are not ported yet)
+HEALTH_TAGS = {"Health/Nonfinite_Updates", "Health/Params_Finite",
+               "Health/Update_Norm"}
 
 
 def test_cli_two_rounds_writes_reference_tags(tmp_path, capsys):
@@ -57,7 +62,12 @@ def test_cli_two_rounds_writes_reference_tags(tmp_path, capsys):
     assert rows[0]["tag"] == "_run/start"
     for step in (1, 2):
         got = {r["tag"] for r in rows if r["step"] == step}
-        assert got == REFERENCE_TAGS, step
+        assert got == REFERENCE_TAGS | HEALTH_TAGS, step
+    health = {r["tag"]: r["value"] for r in rows if r["step"] == 2
+              and r["tag"] in HEALTH_TAGS}
+    assert health["Health/Nonfinite_Updates"] == 0.0
+    assert health["Health/Params_Finite"] == 1.0
+    assert health["Health/Update_Norm"] > 0.0
     assert all(np.isfinite(r["value"]) for r in rows)
 
     # a run asked onto a card that is not there raises, it never falls
@@ -67,6 +77,8 @@ def test_cli_two_rounds_writes_reference_tags(tmp_path, capsys):
             train.resolve_device("cuda")
     with pytest.raises(ValueError, match="not ported"):
         train.args_parser(["--aggr", "comed"])
+    with pytest.raises(ValueError, match="bucket"):
+        train.args_parser(["--agg_layout", "bucket"])
 
 
 def _imports(path):

@@ -51,7 +51,7 @@ def test_cnn_forward_through_carrier():
             ("cifar10", jax_cnn.CNN_CIFAR(), (32, 32, 3))):
         fp = _flax_params(jax_model, shape, 0)
         model = registry.get_model(data, shape)
-        params = carrier.params_from_flax(fp)
+        params = carrier.params_from_flax(fp, "cpu")
         assert list(params) == [n for n, _ in model.named_parameters()]
         for name, p in model.named_parameters():
             assert params[name].shape == p.shape, name
@@ -72,7 +72,7 @@ def test_cnn_forward_through_carrier():
     # init: Flax's lecun_normal (std 1/sqrt(fan_in), truncated at 2 std),
     # zero biases, deterministic in the seed
     model = registry.get_model("fmnist", (28, 28, 1))
-    a, b = (registry.init_params(model, 5) for _ in range(2))
+    a, b = (registry.init_params(model, 5, "cpu") for _ in range(2))
     assert registry.param_count(a) == 1199882
     for name, t in a.items():
         torch.testing.assert_close(t, b[name], atol=0, rtol=0)
@@ -95,7 +95,7 @@ def test_eval_metrics_match_jax():
     y = rng.integers(0, 10, size=(70,)).astype(np.int32)
 
     jnorm = jax_common.make_normalizer(MEAN, STD, False)
-    norm = common.make_normalizer(MEAN, STD)
+    norm = common.make_normalizer(MEAN, STD, "cpu")
     np.testing.assert_allclose(
         norm(torch.from_numpy(x)).numpy(),
         np.asarray(jnorm(jnp.asarray(x))).transpose(0, 3, 1, 2),
@@ -105,7 +105,7 @@ def test_eval_metrics_match_jax():
         fp, *map(jnp.asarray, jax_evaluate.pad_eval_set(x, y, 32)))
     model = registry.get_model("fmnist", shape)
     got = evaluate.make_eval_fn(model, norm)(
-        carrier.params_from_flax(fp),
+        carrier.params_from_flax(fp, "cpu"),
         *map(torch.from_numpy, evaluate.pad_eval_set(x, y, 32)))
     # loss: f32 in another summation order, 1e-5; accuracy and per-class
     # accuracy are counts over the same argmaxes: 1e-6

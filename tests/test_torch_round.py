@@ -109,14 +109,15 @@ def test_local_train_updates_match_jax(setup):
     cfg = Config(**KW)
     model = registry.get_model("fmnist", SHAPE)
     lt = client.make_local_train(model, cfg,
-                                 common.make_normalizer(MEAN, STD))
-    params = carrier.params_from_flax(setup["flax_params"])
+                                 common.make_normalizer(MEAN, STD, "cpu"))
+    params = carrier.params_from_flax(setup["flax_params"], "cpu")
     for slot, a in enumerate(SAMPLED):
         up, loss = lt(params, torch.from_numpy(setup["xs"][a]),
                       torch.from_numpy(setup["ys"][a]).long(), SIZES[a],
                       setup["perms"][slot])
         ours = _flat(up)
-        ref = _flat(carrier.params_from_flax(setup["jax_updates"][slot]))
+        ref = _flat(carrier.params_from_flax(setup["jax_updates"][slot],
+                                            "cpu"))
         scale = np.abs(ref).max()
         assert scale > 1e-3                 # the agent actually trained
         # f32 on both sides, other conv/matmul summation orders: every
@@ -139,8 +140,8 @@ def test_full_round_matches_jax(setup):
     ys = torch.from_numpy(setup["ys"]).long()
     sizes = np.asarray(SIZES, np.int32)
     model = registry.get_model("fmnist", SHAPE)
-    norm = common.make_normalizer(MEAN, STD)
-    params = carrier.params_from_flax(setup["flax_params"])
+    norm = common.make_normalizer(MEAN, STD, "cpu")
+    params = carrier.params_from_flax(setup["flax_params"], "cpu")
     stacked = jax.tree_util.tree_map(lambda *u: jnp.stack(u),
                                      *setup["jax_updates"])
     szs = jnp.asarray(sizes[SAMPLED])
@@ -153,7 +154,8 @@ def test_full_round_matches_jax(setup):
                   else slr)
             agg = jax_aggregate.aggregate_updates(stacked, szs, jcfg, None)
             want = _flat(carrier.params_from_flax(
-                jax_aggregate.apply_aggregate(setup["flax_params"], lr, agg)))
+                jax_aggregate.apply_aggregate(setup["flax_params"], lr, agg),
+                "cpu"))
             # the fallback server step once per rule, with the vote on
             for fused in (True, False) if thr else (True,):
                 cfg = Config(**KW, aggr=aggr, robustLR_threshold=thr,
