@@ -9,35 +9,42 @@ fails:
 1. build: prints the card's name and power limit (nvidia-smi) and builds
    every hand-written kernel (K1 and K2, one build) from the checkout's
    sources, timing the build.
-2. kernels: holds K1 against its plain PyTorch version on the card at the
-   shapes the dense round gives it, and times kernel and plain version
-   with CUDA events (median over 50 launches after warm-up, L2 flushed
-   before each, as the round finds the updates) beside the least time the
-   card needs for the bytes the kernel must move.
+2. kernels: holds K1 against its plain PyTorch version on the card: the
+   one-leaf entry at the test_pallas shapes and every CNN_MNIST leaf, and
+   the one-launch entry over leaf tables (every CNN_MNIST leaf at once,
+   odd widths, one row, 200 rows, leaves off 16 bytes, 70 leaves in two
+   launches), sign exact, values within 1e-5, pad lanes zero. Then times
+   one round's launch over every leaf, between CUDA events (median over
+   50 launches after warm-up, L2 flushed before each, as the round finds
+   the updates) and as device time (torch.profiler), and the Dense_0 leaf
+   alone, beside the least time the card needs for the bytes the kernel
+   must move and the plain version's time.
 3. k2: the same for K2 (the sharded round's per-rank partials) at every
-   CNN_MNIST leaf with m/d = 2 and 5, timed at m/d = 2, with the nearest
+   CNN_MNIST leaf with m/d = 2 and 5 and the same tables, writing both
+   halves of the packed buffer or one, timed at m/d = 2 with the nearest
    composite of PyTorch calls beside it.
 4. main path: the FMNIST triple at full width (CNN_MNIST, K=10 agents all
    sampled, 2 local epochs of bs 256, FedAvg; clean, then 1 corrupt agent
    poisoning half its base-class samples, then that attack with RLR
    threshold 4) for a few rounds each through `train.run`, on synthetic
    data at FMNIST's scale when no FMNIST is on disk, TF32 off. The kernel
-   launch counts are set to 0 just before and read just after: a kernel of
-   the path that did not launch fails the run.
+   launch counts are set to 0 just before and read just after: K1 must
+   launch exactly once a round.
 5. server parity: for one round's real updates, K1's new params vs the
    plain server step's (ops/aggregate.py).
 6. profile: one attack + RLR round timed unprofiled, then under
-   torch.profiler: the card's busy time and idle share, and the kernels
-   that take the most of it.
+   torch.profiler: the card's busy time and idle share, K1's one launch,
+   the cuDNN layout conversions, and the kernels that take the most.
 7. sharded: the attack + RLR run through `train.run` on d = 5 ranks of 2
    agents each (what pick_agent_mesh_size gives m = 10 on 8 cards), as
    spawned processes sharing cuda:0 over gloo (NCCL takes one rank per
    card), cuDNN deterministic and TF32 off. Each rank's counts are set to
-   0 just before its run and read just after: every rank must launch K2 on
-   every leaf of every round and make the leaf plan's 18 all_reduces a
-   round. Then rounds/s and one profiled rank's idle share; round 1 from
-   the seed against the dense round; and one round's updates through the
-   sharded server step against K1 on the whole stack.
+   0 just before its run and read just after: every rank must launch K2
+   once a round and make the plan's 3 all_reduces a round (the loss, the
+   weight total, one packed buffer). Then rounds/s and one profiled
+   rank's idle share; round 1 from the seed against the dense round; and
+   one round's updates through the sharded server step against K1 on the
+   whole stack.
 8. nccl d=1: one sharded round at d = 1 over NCCL in a process of its
    own, configured by the flags a multi-card launch passes.
 
@@ -73,6 +80,9 @@ SHARDED_DIR = "build/chip_smoke/sharded"
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
                    "H100": 3.35e12}
 FP32_FLOPS = 67e12
+# the kernels' names in a profile: rlr::rlr_columns_kernel<...Epilogue>
+K1_KERNEL = "FusedEpilogue"
+K2_KERNEL = "PartialEpilogue"
 
 
 def log(msg: str) -> None:
@@ -87,7 +97,8 @@ def hbm_rate(name: str) -> float:
 
 
 def time_ms(fn, flush, reps: int = 50, warmup: int = 5) -> float:
-    """Median device time of fn() over `reps` runs, L2 flushed before each."""
+    """Median time of fn() between CUDA events over `reps` runs, L2 flushed
+    before each (the host's time to issue the launches is inside)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -102,6 +113,29 @@ def time_ms(fn, flush, reps: int = 50, warmup: int = 5) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, flush, kernel: str, reps: int = 20):
+    """Device time per call of fn() of the kernels whose name holds
+    `kernel`, from torch.profiler, L2 flushed before each call; and their
+    launches per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not mine:
+        raise AssertionError(f"the profiler saw no {kernel} kernel")
+    return (sum(e.time_range.elapsed_us() for e in mine) / 1e3 / reps,
+            len(mine) / reps)
 
 
 def phase_build(rlr_fused) -> None:
@@ -127,10 +161,53 @@ def leaf_shapes():
     return {n: tuple(p.shape) for n, p in model.named_parameters()}
 
 
+def leaf_tables(m_main: int):
+    """(label, m, [n per leaf], unaligned) of the multi-leaf cases: every
+    CNN_MNIST leaf as one table at the main path's m, odd widths, one row,
+    200 rows (several stages a tile), leaves off 16 bytes (no bulk copy
+    possible), and 70 leaves (two launches)."""
+    cnn = [math.prod(s) for s in leaf_shapes().values()]
+    gen = torch.Generator().manual_seed(8)
+    many = [int(n) for n in torch.randint(1, 3000, (70,), generator=gen)]
+    return [(f"CNN_MNIST m={m_main}", m_main, cnn, False),
+            ("odd widths m=7", 7, [1, 2, 3, 5, 10, 1023, 4097, 300], False),
+            ("m=1", 1, [12, 7, 5000], False),
+            ("m=200", 200, [5000, 10, 4096], False),
+            ("off 16 bytes m=10", 10, [4096, 10, 1280], True),
+            ("70 leaves m=3", 3, many, False)]
+
+
+def table_tensors(gen, m, sizes, unaligned):
+    """Update stacks and params of one table on the card; with
+    `unaligned`, each starts 4 bytes past a 16-byte boundary."""
+    def make(*shape):
+        n = math.prod(shape)
+        flat = torch.randn(n + 1, generator=gen, device=DEVICE)
+        return (flat[1:] if unaligned else flat[:n]).view(shape)
+    us = [make(m, n) for n in sizes]
+    us[0][0, :5] = 0.0                      # sign(0) votes for no side
+    return us, [make(n) for n in sizes]
+
+
+def check_pads(rlr_fused, flat, at, offsets, sizes, what) -> None:
+    for o, n in zip(offsets, sizes):
+        if not bool((flat[at + o + n:at + o + rlr_fused.padded(n)] == 0).all()):
+            raise AssertionError(f"{what}: pad lanes not zero")
+
+
+def check_launches(rlr_fused, name, before, n_leaves, what) -> None:
+    want = len(rlr_fused.leaf_chunks(n_leaves))
+    if rlr_fused.LAUNCHES[name] - before != want:
+        raise AssertionError(f"{what}: {rlr_fused.LAUNCHES[name] - before} "
+                             f"launches of {name}, expected {want}")
+
+
 def phase_kernels(rlr_fused, record) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
     err = 0.0
+    # one-leaf entry (a one-row table): the test_pallas shapes and every
+    # CNN_MNIST leaf, one launch each
     cases = [(4, 300, 3.0), (10, 5000, 4.0), (7, 1111, 0.0)] + [
         (M, math.prod(s), 4.0) for s in leaf_shapes().values()]
     for m, n, thr in cases:
@@ -139,20 +216,46 @@ def phase_kernels(rlr_fused, record) -> None:
         p = torch.randn(n, generator=gen, device=dev)
         wn = w / w.sum()
         for mode in ("avg", "sign"):
+            before = rlr_fused.LAUNCHES["rlr_fused"]
             got = rlr_fused.rlr_fused(u, wn, p, thr, 0.5, mode)
             want = rlr_fused.rlr_fused_reference(u, wn, p, thr, 0.5, mode)
             torch.cuda.synchronize()
+            check_launches(rlr_fused, "rlr_fused", before, 1, "one leaf")
             if mode == "sign":
                 # p + (+-lr) * (+-1 | 0): the vote must agree exactly
                 torch.testing.assert_close(got, want, atol=0, rtol=0)
             else:
                 torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
             err = max(err, float((got - want).abs().max()))
-    log(f"[k1] {2 * len(cases)} cases (test_pallas shapes + every CNN_MNIST "
-        f"leaf at m={M}; avg and sign): max |kernel - plain| = {err:.3e} "
-        f"(sign exact, avg within {TOL})")
+    # the multi-leaf entry, one launch per 64 leaves
+    tables = leaf_tables(M)
+    for label, m, sizes, unaligned in tables:
+        us, ps = table_tensors(gen, m, sizes, unaligned)
+        w = torch.rand(m, generator=gen, device=dev) + 1
+        wn = w / w.sum()
+        offsets, total = rlr_fused.packed_offsets(tuple(sizes))
+        for mode, thr in (("avg", 4.0), ("avg", 0.0), ("sign", 2.0)):
+            flat = torch.full((total,), float("nan"), device=dev)
+            before = rlr_fused.LAUNCHES["rlr_fused"]
+            views = rlr_fused.rlr_fused_leaves(us, wn, ps, flat, offsets, thr,
+                                               0.5, mode)
+            torch.cuda.synchronize()
+            check_launches(rlr_fused, "rlr_fused", before, len(sizes), label)
+            for u, p, got in zip(us, ps, views, strict=True):
+                want = rlr_fused.rlr_fused_reference(u, wn, p, thr, 0.5, mode)
+                if mode == "sign":
+                    torch.testing.assert_close(got, want, atol=0, rtol=0)
+                else:
+                    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+                err = max(err, float((got - want).abs().max()))
+            check_pads(rlr_fused, flat, 0, offsets, sizes, label)
+    log(f"[k1] {2 * len(cases)} one-leaf cases (test_pallas shapes + every "
+        f"CNN_MNIST leaf at m={M}; avg and sign) and {3 * len(tables)} "
+        f"multi-leaf tables ({'; '.join(t[0] for t in tables)}; avg+RLR4, "
+        f"avg, sign+RLR2): max |kernel - plain| = {err:.3e} (sign exact, avg "
+        f"within {TOL}), pad lanes zero")
 
-    # one round's server step at the main path's shapes: 8 launches
+    # one round's server step at the main path's shapes: one launch
     name = torch.cuda.get_device_name(0)
     rate = hbm_rate(name)
     shapes = leaf_shapes()
@@ -175,42 +278,51 @@ def phase_kernels(rlr_fused, record) -> None:
             ups[k].view(M, -1), wn, params[k].view(-1), 4.0, 1.0)
             for k in params}
 
-    log(f"[k1-time] leaf, n, kernel_ms, plain_ms, bound_ms (m={M}, avg, "
-        f"thr 4, L2 flushed; {name}, {rate / 1e12:.2f} TB/s):")
-    total_bytes = total_ops = 0
-    for k, s in shapes.items():
-        n = math.prod(s)
-        u, p = ups[k].view(M, -1), params[k].view(-1)
-        nbytes = 4 * (M * n + M + 2 * n)
-        total_bytes += nbytes
-        total_ops += 4 * M * n
-        k_ms = time_ms(lambda: rlr_fused.rlr_fused(u, wn, p, 4.0, 1.0), flush)
-        p_ms = time_ms(lambda: rlr_fused.rlr_fused_reference(
-            u, wn, p, 4.0, 1.0), flush)
-        log(f"[k1-time]   {k:16s} {n:8d} {k_ms:.4f} {p_ms:.4f} "
-            f"{nbytes / rate * 1e3:.4f}")
+    n_all = sum(math.prod(s) for s in shapes.values())
+    total_bytes = 4 * (M * n_all + M + 2 * n_all)
+    total_ops = 4 * M * n_all
     k_ms = time_ms(kernel_step, flush)
+    dev_ms, per_call = device_ms(kernel_step, flush, K1_KERNEL)
+    clean_ms, _ = device_ms(kernel_step, lambda: scratch.sum(), K1_KERNEL)
     p_ms = time_ms(plain_step, flush)
     bound_ms = max(total_bytes / rate, total_ops / FP32_FLOPS) * 1e3
     bound_by = ("bytes" if total_bytes / rate >= total_ops / FP32_FLOPS
                 else "operations")
-    log(f"[k1-time] per round ({len(shapes)} launches): kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); no "
-        f"single PyTorch call computes K1, and the plain version is the "
-        f"nearest composite of PyTorch calls")
+    # Dense_0.weight alone, the one large leaf (a one-row table)
+    d_u, d_p = ups["Dense_0.weight"].view(M, -1), params["Dense_0.weight"].view(-1)
+    d_n = d_p.numel()
+    d_ms = time_ms(lambda: rlr_fused.rlr_fused(d_u, wn, d_p, 4.0, 1.0), flush)
+    d_dev, _ = device_ms(lambda: rlr_fused.rlr_fused(d_u, wn, d_p, 4.0, 1.0),
+                         flush, K1_KERNEL)
+    d_bound = 4 * (M * d_n + M + 2 * d_n) / rate * 1e3
+    log(f"[k1-time] per round (m={M}, avg, thr 4, {len(shapes)} leaves, L2 "
+        f"flushed; {name}, {rate / 1e12:.2f} TB/s): {per_call:.0f} "
+        f"launch(es), between CUDA events {k_ms:.4f} ms, device time "
+        f"{dev_ms:.4f} ms (profiler), plain {p_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {total_bytes / 1e6:.1f} MB; device "
+        f"time at {bound_ms / dev_ms:.0%} of it); no single PyTorch call "
+        f"computes K1, and the plain version is the nearest composite")
+    log(f"[k1-time] the same launch after a flush that only reads the L2 "
+        f"(no dirty line to write back during the kernel): device time "
+        f"{clean_ms:.4f} ms ({bound_ms / clean_ms:.0%} of the bound)")
+    log(f"[k1-time] Dense_0.weight alone (n={d_n}): between CUDA events "
+        f"{d_ms:.4f} ms, device time {d_dev:.4f} ms, bound {d_bound:.4f} ms "
+        f"({d_bound / d_dev:.0%} of the memory rate)")
     record.update(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                  bound_by=bound_by, library_ms=None)
+                  bound_by=bound_by, library_ms=None, device_ms=dev_ms)
 
 
-def partial_bytes_ops(mb: int, n: int):
-    """K2 on one [mb, n] block: bytes it must move (u and wn read once, two
-    outputs written once) and its operations (sign, add, multiply-add)."""
-    return 4 * (mb * n + mb + 2 * n), 3 * mb * n
+def partial_bytes_ops(mb: int, n: int, halves: int = 2):
+    """K2 on one [mb, n] block: bytes it must move (u and wn read once, the
+    `halves` outputs written once) and its operations (sign, add,
+    multiply-add)."""
+    return 4 * (mb * n + mb + halves * n), 3 * mb * n
 
 
 def phase_k2(rlr_fused, record) -> None:
-    """K2 against its plain version, then its time at the sharded main
-    path's shapes (m/d = 2) beside its bound, the plain version and the
+    """K2 against its plain version, one leaf and many, then its time at
+    the sharded main path's shapes (m/d = 2, one launch over every leaf
+    into the packed buffer) beside its bound, the plain version and the
     nearest composite of PyTorch calls."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
@@ -223,61 +335,119 @@ def phase_k2(rlr_fused, record) -> None:
         u[0, :5] = 0.0                      # sign(0) votes for no side
         w = torch.rand(m, generator=gen, device=dev) * 4 + 1
         wn = w / (w.sum() * 2)              # a global total over 2 blocks
+        before = rlr_fused.LAUNCHES["rlr_partial"]
         got_s, got_w = rlr_fused.rlr_partial(u, wn)
         want_s, want_w = rlr_fused.rlr_partial_reference(u, wn)
         torch.cuda.synchronize()
+        check_launches(rlr_fused, "rlr_partial", before, 1, "one leaf")
         # sums of +-1 and 0 round nowhere: exact
         torch.testing.assert_close(got_s, want_s, atol=0, rtol=0)
         torch.testing.assert_close(got_w, want_w, atol=TOL, rtol=TOL)
         err = max(err, float((got_w - want_w).abs().max()))
-    log(f"[k2] {len(cases)} cases (test_pallas shapes + every CNN_MNIST "
-        f"leaf at m/d = 2 and 5): sign sum exact, max |kernel - plain| of "
-        f"the weighted sum {err:.3e} (tolerance {TOL})")
+    mb = M // SHARDED_RANKS
+    tables = leaf_tables(mb) + [(f"CNN_MNIST m={M // 2}", M // 2,
+                                 [math.prod(s) for s in shapes.values()],
+                                 False)]
+    for label, m, sizes, unaligned in tables:
+        us, _ = table_tensors(gen, m, sizes, unaligned)
+        w = torch.rand(m, generator=gen, device=dev) + 1
+        wn = w / (w.sum() * 2)
+        offsets, total = rlr_fused.packed_offsets(tuple(sizes))
+        # [weighted sums | sign sums], as the sharded step packs them
+        for sign_at, wsum_at in ((total, 0), (total, None), (None, 0)):
+            buf = torch.full((2 * total,), float("nan"), device=dev)
+            before = rlr_fused.LAUNCHES["rlr_partial"]
+            rlr_fused.rlr_partial_leaves(us, wn, buf, offsets, sign_at,
+                                         wsum_at)
+            torch.cuda.synchronize()
+            check_launches(rlr_fused, "rlr_partial", before, len(sizes),
+                           label)
+            for u, o in zip(us, offsets):
+                n = u.shape[1]
+                want_s, want_w = rlr_fused.rlr_partial_reference(u, wn)
+                if sign_at is not None:
+                    torch.testing.assert_close(
+                        buf[sign_at + o:sign_at + o + n], want_s, atol=0,
+                        rtol=0)
+                if wsum_at is not None:
+                    got = buf[wsum_at + o:wsum_at + o + n]
+                    torch.testing.assert_close(got, want_w, atol=TOL,
+                                               rtol=TOL)
+                    err = max(err, float((got - want_w).abs().max()))
+            for at, half in ((sign_at, total), (wsum_at, 0)):
+                if at is None:
+                    if not bool(buf[half:half + total].isnan().all()):
+                        raise AssertionError(f"{label}: a half not asked "
+                                             f"for was written")
+                else:
+                    check_pads(rlr_fused, buf, at, offsets, sizes, label)
+    log(f"[k2] {len(cases)} one-leaf cases (test_pallas shapes + every "
+        f"CNN_MNIST leaf at m/d = 2 and 5) and {3 * len(tables)} multi-leaf "
+        f"tables ({'; '.join(t[0] for t in tables)}; both halves, sign only, "
+        f"weighted only): sign sum exact, max |kernel - plain| of the "
+        f"weighted sum {err:.3e} (tolerance {TOL}), pad lanes zero, halves "
+        f"not asked for untouched")
 
     name = torch.cuda.get_device_name(0)
     rate = hbm_rate(name)
-    mb = M // SHARDED_RANKS
     ups = {k: torch.randn((mb,) + s, generator=gen, device=dev) * 1e-2
            for k, s in shapes.items()}
     wn = torch.full((mb,), 1.0 / M, device=dev)
+    views = [ups[k].view(mb, -1) for k in shapes]
+    sizes = [u.shape[1] for u in views]
+    offsets, width = rlr_fused.packed_offsets(tuple(sizes))
+    buf = torch.empty(2 * width, device=dev)
+    stacks = list(ups.values())
     scratch = torch.empty(64 * 2 ** 20, device=dev)     # 256 MB > L2
 
     def flush():
         scratch.zero_()
 
+    def kernel_step():
+        rlr_fused.rlr_partial_leaves(stacks, wn, buf, offsets, width, 0)
+
     def composite(u):
         return torch.sign(u).sum(0), torch.mv(u.t(), wn)
 
-    log(f"[k2-time] leaf, n, kernel_ms, plain_ms, composite_ms, bound_ms "
-        f"(m/d={mb}, L2 flushed; {name}, {rate / 1e12:.2f} TB/s):")
     total_bytes = total_ops = 0
-    for k, s in shapes.items():
-        n = math.prod(s)
-        u = ups[k].view(mb, -1)
+    for n in sizes:
         nbytes, nops = partial_bytes_ops(mb, n)
         total_bytes += nbytes
         total_ops += nops
-        k_ms = time_ms(lambda: rlr_fused.rlr_partial(u, wn), flush)
-        p_ms = time_ms(lambda: rlr_fused.rlr_partial_reference(u, wn), flush)
-        c_ms = time_ms(lambda: composite(u), flush)
-        log(f"[k2-time]   {k:16s} {n:8d} {k_ms:.4f} {p_ms:.4f} {c_ms:.4f} "
-            f"{nbytes / rate * 1e3:.4f}")
-    views = [ups[k].view(mb, -1) for k in shapes]
-    k_ms = time_ms(lambda: [rlr_fused.rlr_partial(u, wn) for u in views],
-                   flush)
+    k_ms = time_ms(kernel_step, flush)
+    dev_ms, per_call = device_ms(kernel_step, flush, K2_KERNEL)
+    clean_ms, _ = device_ms(kernel_step, lambda: scratch.sum(), K2_KERNEL)
     p_ms = time_ms(lambda: [rlr_fused.rlr_partial_reference(u, wn)
                             for u in views], flush)
     c_ms = time_ms(lambda: [composite(u) for u in views], flush)
     bound_ms = max(total_bytes / rate, total_ops / FP32_FLOPS) * 1e3
     bound_by = ("bytes" if total_bytes / rate >= total_ops / FP32_FLOPS
                 else "operations")
-    log(f"[k2-time] per round per rank ({len(shapes)} launches, m/d={mb}): "
-        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, composite "
-        f"torch.sign(u).sum(0) + torch.mv(u.t(), wn) {c_ms:.4f} ms (two "
-        f"calls: no single PyTorch call computes K2), bound {bound_ms:.4f} "
-        f"ms ({bound_by}, {total_bytes / 1e6:.1f} MB)")
+    d_u = ups["Dense_0.weight"].view(mb, -1)
+    d_ms = time_ms(lambda: rlr_fused.rlr_partial(d_u, wn), flush)
+    d_dev, _ = device_ms(lambda: rlr_fused.rlr_partial(d_u, wn), flush,
+                         K2_KERNEL)
+    d_bound = partial_bytes_ops(mb, d_u.shape[1])[0] / rate * 1e3
+    d_c = time_ms(lambda: composite(d_u), flush)
+    log(f"[k2-time] per round per rank (m/d={mb}, {len(shapes)} leaves into "
+        f"the packed buffer, both halves, L2 flushed; {name}, "
+        f"{rate / 1e12:.2f} TB/s): {per_call:.0f} launch(es), between CUDA "
+        f"events {k_ms:.4f} ms, device time {dev_ms:.4f} ms (profiler), "
+        f"plain {p_ms:.4f} ms, composite torch.sign(u).sum(0) + "
+        f"torch.mv(u.t(), wn) {c_ms:.4f} ms (two calls a leaf: no single "
+        f"PyTorch call computes K2), bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{total_bytes / 1e6:.1f} MB; device time at "
+        f"{bound_ms / dev_ms:.0%} of it)")
+    log(f"[k2-time] the same launch after a flush that only reads the L2: "
+        f"device time {clean_ms:.4f} ms ({bound_ms / clean_ms:.0%} of the "
+        f"bound)")
+    log(f"[k2-time] Dense_0.weight alone (n={d_u.shape[1]}): between CUDA "
+        f"events {d_ms:.4f} ms, device time {d_dev:.4f} ms, composite "
+        f"{d_c:.4f} ms, bound {d_bound:.4f} ms ({d_bound / d_dev:.0%} of the "
+        f"memory rate)")
     record.update(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                  bound_by=bound_by, library_ms=None, composite_ms=c_ms)
+                  bound_by=bound_by, library_ms=None, composite_ms=c_ms,
+                  device_ms=dev_ms)
 
 
 def triple():
@@ -309,9 +479,10 @@ def phase_main_path(rlr_fused) -> int:
             f"{s['train_loss']:.4f}, val_acc {s['val_acc']:.4f}, "
             f"poison_acc {s['poison_acc']:.4f} at round {s['round']}")
     launches = rlr_fused.LAUNCHES["rlr_fused"]
-    expect = len(triple()) * ROUNDS * len(leaf_shapes())
+    expect = len(triple()) * ROUNDS
     log(f"[main] rlr_fused launches on the main path: {launches} "
-        f"(expected {expect}: 3 runs x {ROUNDS} rounds x 8 leaves)")
+        f"(expected {expect}: 3 runs x {ROUNDS} rounds, one launch over all "
+        f"{len(leaf_shapes())} leaves a round)")
     for label, s in summaries.items():
         for key in ("train_loss", "val_acc", "val_loss", "poison_acc",
                     "poison_loss", "rounds_per_sec"):
@@ -406,17 +577,22 @@ def phase_profile(st) -> None:
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     busy_ms = sum(t for _, t in by_name.values())
     launches = sum(n for n, _ in by_name.values())
-    k1 = [(n, t) for name, (n, t) in by_name.items() if "rlr_fused" in name]
+    k1 = [(n, t) for name, (n, t) in by_name.items() if K1_KERNEL in name]
     k1_ms = sum(t for _, t in k1)
+    layout = [(n, t) for name, (n, t) in by_name.items()
+              if "nhwcToNchw" in name or "nchwToNhwc" in name]
     log(f"[profile] one attack+RLR round: wall {wall_ms:.1f} ms unprofiled, "
         f"{prof_wall_ms:.1f} ms profiled; card busy {busy_ms:.1f} ms in "
         f"{launches} kernels (idle share {1 - busy_ms / prof_wall_ms:.3f} "
         f"of the profiled round); rlr_fused {k1_ms:.4f} ms in "
-        f"{sum(n for n, _ in k1)} launches")
+        f"{sum(n for n, _ in k1)} launch(es); layout conversions "
+        f"(nhwcToNchw / nchwToNhwc kernels) {sum(t for _, t in layout):.2f} "
+        f"ms in {sum(n for n, _ in layout)} launches")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"[profile]   {t:9.2f} ms {n:6d}x  {name[:90]}")
-    if not k1:
-        raise AssertionError("the profiled round launched no rlr_fused kernel")
+    if [n for n, _ in k1] != [1]:
+        raise AssertionError(f"the profiled round launched rlr_fused "
+                             f"{sum(n for n, _ in k1)} times, expected once")
 
 
 def free_port() -> int:
@@ -631,22 +807,22 @@ def phase_sharded(rlr_fused, record, st) -> None:
         f"{time.perf_counter() - t0:.1f} s")
     ranks = [torch.load(f"{SHARDED_DIR}/rank{r}.pt") for r in range(world)]
 
-    # the main path: every rank launched K2 on every leaf of every round,
-    # never K1, and made the leaf plan's all_reduces
+    # the main path: every rank launched K2 once a round over every leaf,
+    # never K1, and made the plan's all_reduces
     n_leaves = len(leaf_shapes())
-    plan = multihost.leaf_plan_collectives(cfg, n_leaves)
+    plan = multihost.leaf_plan_collectives(cfg)
     for r, out in enumerate(ranks):
         log(f"[sharded] rank {r}: {out['launches']} launches, "
             f"{out['calls']} all_reduces in {cfg.rounds} rounds")
-        if out["launches"]["rlr_partial"] != cfg.rounds * n_leaves:
+        if out["launches"]["rlr_partial"] != cfg.rounds:
             raise AssertionError(f"rank {r} launched rlr_partial "
                                  f"{out['launches']['rlr_partial']} times, "
-                                 f"expected {cfg.rounds * n_leaves}")
+                                 f"expected {cfg.rounds}, one a round")
         if out["launches"]["rlr_fused"]:
             raise AssertionError(f"rank {r} launched K1 on the sharded path")
         if out["calls"] != cfg.rounds * plan:
             raise AssertionError(f"rank {r}: {out['calls']} all_reduces, "
-                                 f"the leaf plan makes {plan} a round")
+                                 f"the plan makes {plan} a round")
     lead = ranks[0]["summary"]
     for key in ("train_loss", "val_acc", "val_loss", "poison_acc",
                 "poison_loss", "rounds_per_sec"):
@@ -656,8 +832,8 @@ def phase_sharded(rlr_fused, record, st) -> None:
         raise AssertionError(f"sharded run's health lanes: {lead}")
     round_ms = [statistics.mean(out["round_ms"]) for out in ranks]
     prof = ranks[0]["profile"]
-    log(f"[sharded] {plan} all_reduces per round (leaf plan, {n_leaves} "
-        f"leaves); rounds/s {lead['rounds_per_sec']:.3f} with eval "
+    log(f"[sharded] {plan} all_reduces per round (the loss, the weight "
+        f"total, one packed buffer of {n_leaves} leaves); rounds/s {lead['rounds_per_sec']:.3f} with eval "
         f"({lead['steady_rounds_per_sec']:.3f} after round 1), "
         f"{1e3 / max(round_ms):.3f} for two more rounds without eval "
         f"(slowest rank {max(round_ms):.1f} ms a round); train_loss "
@@ -769,12 +945,12 @@ def phase_nccl() -> None:
     run_children(nccl_child, [(free_port(),)], 300)
     out = torch.load(f"{SHARDED_DIR}/nccl.pt")
     s = out["summary"]
-    plan = multihost.leaf_plan_collectives(sharded_cfg(), len(leaf_shapes()))
+    plan = multihost.leaf_plan_collectives(sharded_cfg())
     log(f"[nccl] d=1 over {out['backend']}, one round: {out['launches']} "
         f"launches, {s['all_reduces']} all_reduces (plan {plan}), "
         f"train_loss {s['train_loss']:.4f}, val_acc {s['val_acc']:.4f}")
     if (out["backend"] != "nccl" or s["all_reduces"] != plan
-            or out["launches"]["rlr_partial"] != len(leaf_shapes())
+            or out["launches"]["rlr_partial"] != 1
             or out["launches"]["rlr_fused"]
             or not math.isfinite(s["train_loss"])):
         raise AssertionError(f"the NCCL d=1 round: {out}")

@@ -1,74 +1,69 @@
-// Fused RLR vote + FedAvg + apply: the server step of one parameter leaf.
+// K1: the fused RLR vote + FedAvg + apply, the dense round's server step,
+// over every leaf of the model in one launch.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // defending_against_backdoors_with_robust_learning_rate_tpu/ops/pallas_rlr.py
-// (launched per leaf by `_fused_leaf`). For every coordinate j of a leaf
-// with n coordinates, over the m sampled agents' updates U[m, n]:
+// (launched per leaf by `_fused_leaf`). For every coordinate j of a leaf,
+// over the m sampled agents' updates U[m, n]:
 //
 //   s_j   = sum_i sign(U_ij)
 //   lr_j  = use_rlr ? (|s_j| >= threshold ? server_lr : -server_lr) : server_lr
 //   agg_j = sign_mode ? sign(s_j) : sum_i wn_i * U_ij     (wn sums to 1)
 //   out_j = p_j + lr_j * agg_j
 //
-// Bound: bytes. Each coordinate reads m + 1 floats and writes one, and does
-// about 4m flops, far below the card's flop-per-byte balance. The design
-// reads U exactly once: one thread per column j walks the m rows, so at
-// every step of the loop a warp reads 32 consecutive floats of one row
-// (coalesced), and the sign sum and weighted sum stay in registers. Nothing
-// but `out` is written. The Pallas kernel tiled 1024 columns per grid step
-// into VMEM; here the tile is the thread block and the row loop replaces
-// the [m, 1024] block.
-//
-// threshold, server_lr and the mode are runtime arguments (the Pallas kernel
-// bakes them in as compile-time constants).
+// Bound: bytes, (m + 2) * n * 4 of them (U and p read once, out written
+// once). The column reduction, the leaf table and the bulk-copy ring are
+// rlr_columns.cuh; this file is the epilogue, which takes p from the ring
+// and writes out 16 bytes a thread. threshold, server_lr and the mode are
+// runtime arguments (the Pallas kernel bakes them in as compile-time
+// constants).
 //
 // Plain C interface: this file includes no PyTorch header, so nvcc compiles
 // it in seconds; rlr_fused_binding.cpp binds it.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "rlr_columns.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+struct FusedEpilogue {
+  static constexpr bool kParamsRow = true;  // p comes through the ring
 
-// jnp.sign / torch.sign: +1, -1, the zero itself, NaN stays NaN
-__device__ __forceinline__ float sign_of(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
-}
-
-__global__ void __launch_bounds__(kThreads)
-rlr_fused_kernel(const float* __restrict__ u, const float* __restrict__ wn,
-                 const float* __restrict__ p, float* __restrict__ out, int m,
-                 int64_t n, float threshold, float server_lr, int use_rlr,
-                 int sign_mode) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (j >= n) return;
-  float ssum = 0.f;
-  float wsum = 0.f;
-  const float* col = u + j;
-  for (int i = 0; i < m; ++i) {
-    const float x = __ldg(col + static_cast<int64_t>(i) * n);
-    ssum += sign_of(x);
-    wsum = fmaf(__ldg(wn + i), x, wsum);
+  static __device__ __forceinline__ float apply(const rlr::Table& t, float p,
+                                                float s, float w) {
+    const float agg = t.sign_mode ? rlr::sign_of(s) : w;
+    const float lr = t.use_rlr
+                         ? (fabsf(s) >= t.threshold ? t.server_lr : -t.server_lr)
+                         : t.server_lr;
+    return p + lr * agg;
   }
-  const float agg = sign_mode ? sign_of(ssum) : wsum;
-  const float lr =
-      use_rlr ? (fabsf(ssum) >= threshold ? server_lr : -server_lr) : server_lr;
-  out[j] = p[j] + lr * agg;
-}
+
+  static __device__ __forceinline__ void store4(const rlr::Table& t,
+                                                const rlr::Leaf& leaf,
+                                                int64_t col, float4 s,
+                                                float4 w, float4 p) {
+    float4 out;
+    out.x = apply(t, p.x, s.x, w.x);
+    out.y = apply(t, p.y, s.y, w.y);
+    out.z = apply(t, p.z, s.z, w.z);
+    out.w = apply(t, p.w, s.w, w.w);
+    *reinterpret_cast<float4*>(leaf.out + col) = out;
+  }
+
+  static __device__ __forceinline__ void store1(const rlr::Table& t,
+                                                const rlr::Leaf& leaf,
+                                                int64_t col, float s, float w) {
+    leaf.out[col] = apply(t, __ldg(leaf.p + col), s, w);
+  }
+
+  static __device__ __forceinline__ void store_zero(const rlr::Leaf& leaf,
+                                                    int64_t col) {
+    leaf.out[col] = 0.f;
+  }
+};
 
 }  // namespace
 
-// Launches on `stream` and returns without synchronising. The caller checks
-// cudaGetLastError() right after (C10_CUDA_KERNEL_LAUNCH_CHECK in the
-// binding), so this function must not read or clear the error itself.
-extern "C" void rlr_fused_launch(const float* u, const float* wn,
-                                 const float* p, float* out, int m, int64_t n,
-                                 float threshold, float server_lr, int use_rlr,
-                                 int sign_mode, cudaStream_t stream) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  rlr_fused_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-      u, wn, p, out, m, n, threshold, server_lr, use_rlr, sign_mode);
+// One launch over the table's leaves on `stream`; see launch_columns.
+extern "C" int rlr_fused_launch(const rlr::Table* table, cudaStream_t stream) {
+  return static_cast<int>(rlr::launch_columns<FusedEpilogue>(*table, stream));
 }

@@ -14,15 +14,20 @@ def make_normalizer(mean, std, device):
     """Raw NHWC pixels -> normalized NCHW float32 model input:
     (x/255 - mean)/std with the reference constants (src/utils.py:101,
     113-116). The JAX normalizer keeps NHWC for its NHWC model; this one
-    moves channels first for the NCHW model, which is a view for the
-    one-channel images of the main path."""
+    moves channels first for the NCHW model. The float conversion copies
+    into NCHW strides: for one channel the permuted view's strides
+    (H*W, 1, W, 1) read as channels-last, and cuDNN would then run the
+    convolutions channels-last and convert layouts around them.
+    `.contiguous()` would not do: it takes that view as contiguous and
+    returns it unchanged."""
     mean_t = torch.as_tensor(mean, dtype=torch.float32,
                              device=device).reshape(1, -1, 1, 1)
     std_t = torch.as_tensor(std, dtype=torch.float32,
                             device=device).reshape(1, -1, 1, 1)
 
     def norm(x):
-        x = x.permute(0, 3, 1, 2).to(torch.float32)
+        x = x.permute(0, 3, 1, 2).to(
+            torch.float32, memory_format=torch.contiguous_format)
         return (x / 255.0 - mean_t) / std_t
     return norm
 

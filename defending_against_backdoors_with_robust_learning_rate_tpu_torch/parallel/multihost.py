@@ -72,27 +72,22 @@ def require_pod_divisible(m: int, what: str, n: int) -> int:
     return n
 
 
-def leaf_plan_collectives(cfg, n_leaves: int) -> int:
-    """all_reduces per round of the leaf layout (parallel/rounds.py): the
-    loss (with the health lanes packed in) is one; the fused step adds the
-    weight total and one sign-sum per leaf, plus one weighted sum per leaf
-    for avg; the plain step one per leaf per psum that JAX issues."""
-    avg = cfg.aggr == "avg"
-    rlr = cfg.robustLR_threshold > 0
-    if _fused_applicable(cfg):
-        return 1 + 1 + n_leaves * (2 if avg else 1)
-    if not avg:
-        return 1 + n_leaves          # one sign-sum per leaf, shared
-    return 1 + 1 + n_leaves * (2 if rlr else 1)
+def leaf_plan_collectives(cfg) -> int:
+    """all_reduces per round of the sharded round (parallel/rounds.py),
+    fused and plain alike: the loss with the health lanes packed in, the
+    weight total for avg, and the server step's one packed buffer. 3 for
+    avg with or without RLR, 2 for sign: JAX's compiled count, where XLA's
+    combiner merges the per-leaf psums into one tuple all-reduce."""
+    weight_total = 1 if cfg.aggr == "avg" else 0
+    return 1 + weight_total + 1
 
 
 def agg_plan_note(cfg, params, group: AgentsGroup) -> str:
     """The bring-up log line for the aggregation collective plan this
     group runs each round."""
-    n_leaves = len(params)
-    n = leaf_plan_collectives(cfg, n_leaves)
-    step = ("fused server step: per-rank partial sums (K2) + per-leaf "
-            "all_reduces" if _fused_applicable(cfg)
+    step = ("fused server step: per-rank partial sums (K2, one launch)"
+            if _fused_applicable(cfg)
             else f"leaf aggregation ({cfg.aggr})")
-    return (f"{step}: {n} all_reduces/round over {group.size} rank(s) "
-            f"({n_leaves} leaves; the loss and health lanes share one)")
+    return (f"{step} + one packed all_reduce of {len(params)} leaves: "
+            f"{leaf_plan_collectives(cfg)} all_reduces/round over "
+            f"{group.size} rank(s) (the loss and health lanes share one)")

@@ -17,12 +17,16 @@ slots, each slot with the generator the dense round gives it
 (fl/rounds.RoundRNG.slot), so the sharded round equals the dense one for
 the same seed. The new params come out replicated on every rank.
 
-Server step, leaf layout: with the fused step (`--no_fused` not given, the
-default) it is `_sharded_fused_apply`: kernel K2 (ops/rlr_fused.
-partial_vote_avg_flat) per leaf on the rank's block, all_reduces of the
-partials, then the elementwise lr / apply. Otherwise the plain
-`_sharded_robust_lr` / `_sharded_aggregate` / `_sharded_sign_shared`, the
-fused step's oracle. The loss and the health lanes share one all_reduce.
+Server step, leaf layout (`sharded_server_step`): every leaf's partials go
+into one packed buffer (`PackedPlan`) and the round makes one all_reduce
+of the part the step reads, as XLA's combiner merges JAX's per-leaf psums
+into one tuple all-reduce; then the elementwise lr / apply. The partials
+come from one K2 launch over all leaves (ops/rlr_fused.rlr_partial_leaves)
+with the fused step (`--no_fused` not given, the default), or from plain
+torch ops, the fused step's oracle. A round's all_reduces, fused or plain:
+the weight total (avg only), the packed buffer, and the loss with the
+health lanes: 3 for avg, 2 for sign (parallel/multihost.
+leaf_plan_collectives).
 Not ported: the bucket layout, comed/trmean/krum/rfa (all_to_all), server
 noise, faults, churn, quarantine, attack strategies, tenants, buffered
 mode, diagnostics and telemetry.
@@ -30,7 +34,8 @@ mode, diagnostics and telemetry.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,99 +45,107 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds i
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     sentinel as health_sentinel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.aggregate import (
-    apply_aggregate, rlr_from_sign_sum)
+    rlr_from_sign_sum)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.rlr_fused import (
-    partial_vote_avg_flat)
+    packed_offsets, put_padded, rlr_partial_leaves)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.tree import (
     Params)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.mesh import (
     AgentsGroup)
 
 
-def _weight_total(sizes, group: AgentsGroup):
-    """(this rank's f32 weights, their all_reduced total [1])."""
+@dataclasses.dataclass(frozen=True)
+class PackedPlan:
+    """The layout of a round's one server-step all_reduce: a flat f32
+    buffer [weighted sums of every leaf | sign sums of every leaf], each
+    half `width` floats, each leaf at an offset rounded up to ALIGN floats
+    (16 bytes) with zeros in its pad lanes. Only the halves the step reads
+    are written and reduced: the weighted half for avg, the sign half where
+    RLR is on or aggr is sign; `reduced` is that contiguous slice."""
+
+    numels: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    width: int
+    wsum: bool
+    sign: bool
+
+    @property
+    def reduced(self) -> slice:
+        return slice(0 if self.wsum else self.width,
+                     2 * self.width if self.sign else self.width)
+
+    @property
+    def sign_at(self) -> Optional[int]:
+        """Where the sign half starts, or None where it is not read."""
+        return self.width if self.sign else None
+
+    @property
+    def wsum_at(self) -> Optional[int]:
+        return 0 if self.wsum else None
+
+
+def packed_plan(cfg, params: Params) -> PackedPlan:
+    numels = tuple(p.numel() for p in params.values())
+    offsets, width = packed_offsets(numels)
+    return PackedPlan(numels, offsets, width, wsum=cfg.aggr == "avg",
+                      sign=cfg.aggr == "sign" or cfg.robustLR_threshold > 0)
+
+
+def sharded_partials(params: Params, updates: Params, sizes, cfg,
+                     group: AgentsGroup):
+    """This rank's partials of every leaf in the round's packed buffer,
+    then its one all_reduce. Returns (plan, buf): buf[plan.reduced] summed
+    over the group, the weighted half already the global FedAvg.
+
+    Fused (the default): one K2 launch over all leaves with weights divided
+    by the all_reduced weight total. Plain (--no_fused): the same sums as
+    torch ops into the same views, the weighted half divided by the total
+    after the all_reduce, as JAX's `_sharded_aggregate` does. The weight
+    total is all_reduced only for avg, where it is read."""
+    if cfg.aggr not in ("avg", "sign"):
+        raise ValueError(f"aggr {cfg.aggr!r} on the sharded round is not "
+                         f"ported yet (it needs the all_to_all transpose "
+                         f"plan)")
+    plan = packed_plan(cfg, params)
+    fused = _fused_applicable(cfg)
     w = sizes.to(torch.float32)
-    return w, group.all_reduce_sum_(torch.sum(w).reshape(1))
-
-
-def _sign_sum(u, group: AgentsGroup) -> torch.Tensor:
-    return group.all_reduce_sum_(torch.sum(torch.sign(u), dim=0))
-
-
-def _sharded_fused_apply(params: Params, updates: Params, sizes, cfg,
-                         group: AgentsGroup) -> Params:
-    """The fused server step over the group: K2 per leaf on the rank's
-    [m/d, n_leaf] block (a view, no copy), all_reduce of the sign sum and,
-    for avg, of the weighted sum, then lr = +-server_lr by |s| >= thr and
-    p + lr * agg as plain torch ops."""
-    w, total = _weight_total(sizes, group)
-    wn = w / total
-    slr = cfg.effective_server_lr
-    thr = float(cfg.robustLR_threshold)
-    out = {}
-    for k, p in params.items():
-        u = updates[k]
-        ssum, wsum = partial_vote_avg_flat(u.view(u.shape[0], -1), wn)
-        group.all_reduce_sum_(ssum)
-        agg = (torch.sign(ssum) if cfg.aggr == "sign"
-               else group.all_reduce_sum_(wsum))
-        lr = rlr_from_sign_sum(ssum, thr, slr) if thr > 0 else slr
-        out[k] = (p.reshape(-1).to(torch.float32) + lr * agg).view(p.shape)
-    return out
-
-
-def _sharded_aggregate(updates: Params, sizes, cfg,
-                       group: AgentsGroup) -> Params:
-    """The avg and sign rules as all_reduces of the local block's partial
-    sums; returns the replicated aggregate."""
-    if cfg.aggr == "avg":
-        w, total = _weight_total(sizes, group)
-        out = {}
-        for k, u in updates.items():
-            wshape = (-1,) + (1,) * (u.ndim - 1)
-            out[k] = group.all_reduce_sum_(
-                torch.sum(u * w.reshape(wshape), dim=0)) / total
-        return out
-    if cfg.aggr == "sign":
-        return {k: torch.sign(_sign_sum(u, group)) for k, u in updates.items()}
-    raise ValueError(f"aggr {cfg.aggr!r} on the sharded round is not ported "
-                     f"yet (it needs the all_to_all transpose plan)")
-
-
-def _sharded_sign_shared(updates: Params, cfg, group: AgentsGroup):
-    """aggr='sign' + RLR: one sign-sum all_reduce per leaf, read twice (the
-    vote takes |s|, the aggregate sign(s)). Returns (lr, agg)."""
-    thr = float(cfg.robustLR_threshold)
-    slr = cfg.effective_server_lr
-    lr, agg = {}, {}
-    for k, u in updates.items():
-        s = _sign_sum(u, group)
-        lr[k] = rlr_from_sign_sum(s, thr, slr)
-        agg[k] = torch.sign(s)
-    return lr, agg
-
-
-def _sharded_robust_lr(updates: Params, cfg, group: AgentsGroup) -> Params:
-    """The RLR vote over the m sampled agents as one all_reduce per leaf."""
-    thr = float(cfg.robustLR_threshold)
-    slr = cfg.effective_server_lr
-    return {k: rlr_from_sign_sum(_sign_sum(u, group), thr, slr)
-            for k, u in updates.items()}
+    total = (group.all_reduce_sum_(torch.sum(w).reshape(1)) if plan.wsum
+             else None)
+    buf = torch.empty(2 * plan.width, dtype=torch.float32, device=w.device)
+    us = [updates[k] for k in params]
+    if fused:
+        rlr_partial_leaves(us, w / total if plan.wsum else w, buf,
+                           plan.offsets, plan.sign_at, plan.wsum_at)
+    else:
+        for u, at in zip(us, plan.offsets):
+            u = u.view(u.shape[0], -1)
+            if plan.sign:
+                put_padded(buf, plan.sign_at + at,
+                           torch.sum(torch.sign(u), dim=0))
+            if plan.wsum:
+                put_padded(buf, plan.wsum_at + at,
+                           torch.sum(u * w[:, None], dim=0))
+    group.all_reduce_sum_(buf[plan.reduced])
+    if plan.wsum and not fused:
+        buf[:plan.width] /= total
+    return plan, buf
 
 
 def sharded_server_step(params: Params, updates: Params, sizes, cfg,
                         group: AgentsGroup) -> Params:
     """New replicated params from this rank's [m/d, ...] update block and
-    its data sizes [m/d]."""
-    if _fused_applicable(cfg):
-        return _sharded_fused_apply(params, updates, sizes, cfg, group)
-    if cfg.robustLR_threshold > 0 and cfg.aggr == "sign":
-        lr, agg = _sharded_sign_shared(updates, cfg, group)
-        return apply_aggregate(params, lr, agg)
-    lr = (_sharded_robust_lr(updates, cfg, group)
-          if cfg.robustLR_threshold > 0 else cfg.effective_server_lr)
-    return apply_aggregate(params, lr,
-                           _sharded_aggregate(updates, sizes, cfg, group))
+    its data sizes [m/d]: the packed partials and their all_reduce, then
+    lr = +-server_lr by |s| >= thr and agg over the whole buffer, and
+    p + lr * agg per leaf on views of it."""
+    plan, buf = sharded_partials(params, updates, sizes, cfg, group)
+    thr = float(cfg.robustLR_threshold)
+    slr = cfg.effective_server_lr
+    s = buf[plan.width:] if plan.sign else None
+    agg = torch.sign(s) if cfg.aggr == "sign" else buf[:plan.width]
+    step = (rlr_from_sign_sum(s, thr, slr) if thr > 0 else slr) * agg
+    return {k: (p.reshape(-1).to(torch.float32) + step[o:o + n]).view(p.shape)
+            for (k, p), o, n in zip(params.items(), plan.offsets, plan.numels,
+                                    strict=True)}
 
 
 def _loss_and_health(cfg, losses, updates_local: Params, new_params: Params,
