@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives the port (`defending_against_backdoors_with_robust_learning_rate_tpu_torch`,
-never the JAX package) through eight phases and exits non-zero if any
+never the JAX package) through nine phases and exits non-zero if any
 fails:
 
 1. build: prints the card's name and power limit (nvidia-smi) and builds
@@ -23,29 +23,45 @@ fails:
    CNN_MNIST leaf with m/d = 2 and 5 and the same tables, writing both
    halves of the packed buffer or one, timed at m/d = 2 with the nearest
    composite of PyTorch calls beside it.
-4. main path: the FMNIST triple at full width (CNN_MNIST, K=10 agents all
+4. batched: one attack + RLR round's local training at full width (m = 10,
+   bs 256, 6,000 samples an agent, 28x28): the same slot draws through the
+   per-agent oracle (fl/client.make_local_train) and through the batched
+   trainer in the vmap layout, the megabatch layout and the vmap layout in
+   chunks of 5, each agent's update held to the oracle's in relative L2 and
+   in max-abs against the update's scale: after a short round of 4 steps
+   (TRAIN_TOL) and after the full round's 48 (ROUND_TOL, beside the
+   oracle's own spread when its start point moves by one ulp). Then the
+   captured round's replay against the same round run eagerly, with cuDNN
+   as the main path runs it and deterministic (held to 1e-5); and one
+   batched step against m sequential steps for each layout, eager and as
+   a CUDA graph.
+5. main path: the FMNIST triple at full width (CNN_MNIST, K=10 agents all
    sampled, 2 local epochs of bs 256, FedAvg; clean, then 1 corrupt agent
    poisoning half its base-class samples, then that attack with RLR
    threshold 4) for a few rounds each through `train.run`, on synthetic
-   data at FMNIST's scale when no FMNIST is on disk, TF32 off. The kernel
-   launch counts are set to 0 just before and read just after: K1 must
-   launch exactly once a round.
-5. server parity: for one round's real updates, K1's new params vs the
+   data at FMNIST's scale when no FMNIST is on disk, TF32 off; then the
+   triple again with `--chain 2`. Each round is a replay of the run's
+   captured CUDA graph after the first. The kernel launch counts and the
+   graph replays are set to 0 just before and read just after: K1 must
+   launch exactly once a round (the first round's eager launch, then one
+   in each replay) and every round after the first must be a replay.
+6. server parity: for one round's real updates, K1's new params vs the
    plain server step's (ops/aggregate.py).
-6. profile: one attack + RLR round timed unprofiled, then under
-   torch.profiler: the card's busy time and idle share, K1's one launch,
-   the cuDNN layout conversions, and the kernels that take the most.
-7. sharded: the attack + RLR run through `train.run` on d = 5 ranks of 2
+7. profile: one replayed attack + RLR round timed unprofiled, then under
+   torch.profiler: its kernels, the card's busy time and idle share, K1's
+   one launch, and the kernels that take the most.
+8. sharded: the attack + RLR run through `train.run` on d = 5 ranks of 2
    agents each (what pick_agent_mesh_size gives m = 10 on 8 cards), as
    spawned processes sharing cuda:0 over gloo (NCCL takes one rank per
-   card), cuDNN deterministic and TF32 off. Each rank's counts are set to
-   0 just before its run and read just after: every rank must launch K2
-   once a round and make the plan's 3 all_reduces a round (the loss, the
-   weight total, one packed buffer). Then rounds/s and one profiled
-   rank's idle share; round 1 from the seed against the dense round; and
-   one round's updates through the sharded server step against K1 on the
-   whole stack.
-8. nccl d=1: one sharded round at d = 1 over NCCL in a process of its
+   card), cuDNN deterministic and TF32 off; each rank trains its block as
+   one batched program, eagerly. Each rank's counts are set to 0 just
+   before its run and read just after: every rank must launch K2 once a
+   round and make the plan's 3 all_reduces a round (the loss, the weight
+   total, one packed buffer). Then rounds/s and one profiled rank's idle
+   share; round 1 from the seed against the dense round trained in chunks
+   of a rank's block; and one round's updates through the sharded server
+   step against K1 on the whole stack.
+9. nccl d=1: one sharded round at d = 1 over NCCL in a process of its
    own, configured by the flags a multi-card launch passes.
 
 The last two lines of standard output are one JSON object per kernel
@@ -72,6 +88,15 @@ DEVICE = "cuda"
 ROUNDS = 4
 M = 10                      # agents per round on the main path
 TOL = 1e-5                  # avg mode: f32 sums in another order
+# batched trainer vs the per-agent oracle, per agent: relative L2 of the
+# update difference, and its max-abs over the update's max-abs. A short
+# round of 4 steps: f32 with TF32 off, grouped against single convolutions
+# and stacked against one-agent reductions summing in other orders. The
+# whole round: its 48 steps of SGD amplify any such difference as they
+# amplify a one-ulp move of the start point (printed beside it; 6.2e-2
+# relative L2 on the H100), so that check only catches a gross fault.
+TRAIN_TOL = (1e-4, 1e-3)
+ROUND_TOL = (0.25, 0.25)
 SHARDED_RANKS = 5           # pick_agent_mesh_size(8, 10, 8): 2 agents each
 SHARDED_ROUNDS = 3
 SHARDED_DIR = "build/chip_smoke/sharded"
@@ -450,6 +475,214 @@ def phase_k2(rlr_fused, record) -> None:
                   device_ms=dev_ms)
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Median time of one replay of fn captured as a CUDA graph (after a
+    warm-up on a side stream), between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, lambda: None, reps=reps, warmup=2)
+    del graph
+    return ms
+
+
+def flat_rows(stacked):
+    return torch.cat([v.reshape(v.shape[0], -1) for v in stacked.values()],
+                     dim=1)
+
+
+def update_gap(got, want):
+    """Worst agent's relative L2 and max-abs (over the update's max-abs)
+    between two [m, n] update stacks."""
+    rel = ((got - want).norm(dim=1) / want.norm(dim=1)).max().item()
+    mx = ((got - want).abs().amax(dim=1)
+          / want.abs().amax(dim=1)).max().item()
+    return rel, mx
+
+
+def phase_batched(st) -> None:
+    """The batched trainer against the per-agent oracle on the same slot
+    draws, in each layout: a short round (held to TRAIN_TOL) and the whole
+    round (held to ROUND_TOL, beside the oracle's own spread when its start
+    point moves by one ulp); the captured round's replay against the eager
+    round; one batched step against m sequential steps, eager and as
+    graphs."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        client, rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+        compile_cache)
+
+    cfg, fed, model, norm = st["cfg"], st["fed"], st["model"], st["norm"]
+    images, labels, params0 = st["images"], st["labels"], st["params"]
+    sizes = fed.train.sizes
+    rng = rounds.RoundRNG(cfg.seed, DEVICE)
+    rnd = rng.next_round()
+    sampled = rounds.sample_agents(cfg, rng.host).tolist()
+    m = len(sampled)
+    trainer = rounds.make_block_trainer(cfg, model, norm, images, labels,
+                                        sizes)
+    agents, perms, keep = trainer.draw(rng, rnd, sampled, 0, m)
+    nb = images.shape[1] // cfg.bs
+    log(f"[batched] m={m}, bs {cfg.bs}, shards {min(sizes)}-{max(sizes)} "
+        f"samples padded to {images.shape[1]}, {cfg.local_ep} x {nb} = "
+        f"{cfg.local_ep * nb} steps; keep-masks "
+        f"{sum(k.numel() for k in keep) / 1e6:.1f} MB a round "
+        f"({', '.join(str(tuple(k.shape)) for k in keep)})")
+    layouts = (("vmap", cfg),
+               ("megabatch", cfg.replace(train_layout="megabatch")),
+               ("vmap chunk 5", cfg.replace(agent_chunk=5)))
+
+    # a short round from params0: both epochs over each agent's first two
+    # batches, the second partly padding for most agents, on fresh draws
+    # for that shape; 4 steps leave f32 differences unamplified
+    bs = cfg.bs
+    imgs_s = images[:, :2 * bs].contiguous()
+    lbls_s = labels[:, :2 * bs].contiguous()
+    sizes_s = [2 * bs - (37 * a) % bs for a in range(len(sizes))]
+    short = rounds.make_block_trainer(cfg, model, norm, imgs_s, lbls_s,
+                                      sizes_s)
+    draws_s = short.draw(rounds.RoundRNG(cfg.seed + 3, DEVICE), 1, sampled,
+                         0, m)
+    want_s = flat_rows({k: torch.stack([u[k] for u, _ in (
+        client.make_local_train(model, cfg, norm)(
+            params0, imgs_s[a], lbls_s[a], sizes_s[a], draws_s[1][s],
+            tuple(k[s] for k in draws_s[2]))
+        for s, a in enumerate(sampled))]) for k in params0})
+    for label, c in layouts:
+        tr = rounds.make_block_trainer(c, model, norm, imgs_s, lbls_s,
+                                       sizes_s)
+        rel, mx = update_gap(flat_rows(tr.run(params0, *draws_s)[0]), want_s)
+        log(f"[batched] short round (2 epochs x 2 batches), {label} vs the "
+            f"oracle: worst agent rel L2 {rel:.3e}, max-abs {mx:.3e} of the "
+            f"update's scale (tolerances {TRAIN_TOL[0]:g}, "
+            f"{TRAIN_TOL[1]:g})")
+        if rel > TRAIN_TOL[0] or mx > TRAIN_TOL[1]:
+            raise AssertionError(f"{label}: the batched trainer left the "
+                                 f"per-agent oracle")
+
+    # the whole round, 48 steps
+    oracle = client.make_local_train(model, cfg, norm)
+
+    def run_oracle(p0):
+        outs = [oracle(p0, images[a], labels[a], int(sizes[a]), perms[s],
+                       tuple(k[s] for k in keep))
+                for s, a in enumerate(sampled)]
+        return (flat_rows({k: torch.stack([u[k] for u, _ in outs])
+                           for k in params0}),
+                torch.stack([loss for _, loss in outs]))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_loss = run_oracle(params0)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    nudged = {k: v * (1 + 2.0 ** -23 * torch.randn(v.shape, generator=gen,
+                                                    device=DEVICE))
+              for k, v in params0.items()}
+    spread = update_gap(run_oracle(nudged)[0], want)
+    log(f"[batched] the round's conditioning: the oracle from params0 moved "
+        f"by one ulp, worst agent rel L2 {spread[0]:.3e}, max-abs "
+        f"{spread[1]:.3e} of the update's scale after "
+        f"{cfg.local_ep * nb} steps")
+    got_by = {}
+    for label, c in layouts:
+        tr = rounds.make_block_trainer(c, model, norm, images, labels, sizes)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ups, losses = tr.run(params0, agents, perms, keep)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        got_by[label] = flat_rows(ups)
+        rel, mx = update_gap(got_by[label], want)
+        lrel = ((losses - want_loss).abs() / want_loss.abs()).max().item()
+        log(f"[batched] whole round, {label} vs the oracle: worst agent rel "
+            f"L2 {rel:.3e}, max-abs {mx:.3e} of the update's scale, loss rel "
+            f"{lrel:.3e} (tolerances {ROUND_TOL[0]:g}, {ROUND_TOL[1]:g}, "
+            f"{ROUND_TOL[0]:g}); eager block {times[0]:.3f} s first call, "
+            f"{times[1]:.3f} s second, the oracle {oracle_s:.3f} s")
+        if rel > ROUND_TOL[0] or mx > ROUND_TOL[1] or lrel > ROUND_TOL[0]:
+            raise AssertionError(f"{label}: the batched trainer left the "
+                                 f"per-agent oracle")
+    same = update_gap(got_by["megabatch"], got_by["vmap"])
+    log(f"[batched] whole round, megabatch vs vmap: rel L2 {same[0]:.3e}, "
+        f"max-abs {same[1]:.3e} of the update's scale")
+    del want, got_by
+
+    # the captured round's replay (round 2) against the eager round 2
+    strict = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    for mode in ("default", "deterministic"):
+        torch.backends.cudnn.deterministic = mode == "deterministic"
+        try:
+            out = {}
+            for capture in (True, False):
+                fn = rounds.make_round_fn(cfg, model, norm, images, labels,
+                                          sizes, capture=capture)
+                r = rounds.RoundRNG(cfg.seed + 11, DEVICE)
+                replays = compile_cache.GRAPH_REPLAYS["round"]
+                p, info = fn(params0, r)
+                p, info = fn(p, r)
+                out[capture] = ({k: v.clone() for k, v in p.items()},
+                                float(info["train_loss"]),
+                                compile_cache.GRAPH_REPLAYS["round"]
+                                - replays)
+                del fn, p, info
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = strict
+        diff = max(float((out[True][0][k] - v).abs().max())
+                   for k, v in out[False][0].items())
+        log(f"[batched] round 2, captured replay vs eager (cuDNN {mode}): "
+            f"max |params diff| {diff:.3e}, train_loss {out[True][1]:.7f} vs "
+            f"{out[False][1]:.7f}; replays {out[True][2]} / {out[False][2]}"
+            + (f" (tolerance {TOL})" if mode == "deterministic" else ""))
+        if out[True][2] != 1 or out[False][2] != 0:
+            raise AssertionError("the captured round did not replay")
+        if mode == "deterministic" and diff > TOL:
+            raise AssertionError("the replayed round left the eager round")
+
+    # one step: batched (both layouts, and the vmap layout in chunks)
+    # against m sequential one-agent steps, eager and as CUDA graphs
+    c1 = cfg.replace(local_ep=1)
+    imgs1, lbls1 = imgs_s[:, :bs].contiguous(), lbls_s[:, :bs].contiguous()
+    full = torch.full((m,), bs, device=DEVICE)
+    perms1 = torch.arange(bs, device=DEVICE).expand(m, 1, bs).contiguous()
+    keep1 = tuple(k[:, :1, :1].contiguous() for k in keep)
+    lt1 = client.make_local_train(model, c1, norm)
+
+    def sequential():
+        return [lt1(params0, imgs1[a], lbls1[a], bs, perms1[s],
+                    tuple(k[s] for k in keep1))
+                for s, a in enumerate(sampled)]
+
+    seq = (time_ms(sequential, lambda: None, reps=10, warmup=2),
+           graph_ms(sequential))
+    line = []
+    chunked = tuple((f"vmap chunk {n}", cfg.replace(agent_chunk=n))
+                    for n in (1, 2, 5))
+    for label, c in layouts[:2] + chunked:
+        tr1 = rounds.make_block_trainer(c.replace(local_ep=1), model, norm,
+                                        imgs1, lbls1, [bs] * len(sizes))
+
+        def step(tr1=tr1):
+            return tr1.run(params0, agents, perms1, keep1)
+        ms = (time_ms(step, lambda: None, reps=10, warmup=2), graph_ms(step))
+        line.append(f"{label} {ms[0]:.2f} ms eager / {ms[1]:.2f} ms as a "
+                    f"graph ({seq[1] / ms[1]:.2f}x the sequential graph)")
+    log(f"[batched] one SGD step of m={m} agents at bs {bs}: "
+        f"{'; '.join(line)}; m sequential one-agent steps {seq[0]:.2f} ms "
+        f"eager / {seq[1]:.2f} ms as a graph")
+
+
 def triple():
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
         Config)
@@ -468,22 +701,31 @@ def triple():
 def phase_main_path(rlr_fused) -> int:
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
         train)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+        compile_cache)
     for k in rlr_fused.LAUNCHES:
         rlr_fused.LAUNCHES[k] = 0
+    compile_cache.GRAPH_REPLAYS["round"] = 0
     summaries = {}
-    for label, cfg in triple().items():
-        s = train.run(cfg)
-        summaries[label] = s
-        log(f"[main] {label}: {s['rounds_per_sec']:.3f} rounds/s "
-            f"({s['steady_rounds_per_sec']:.3f} after round 1), train_loss "
-            f"{s['train_loss']:.4f}, val_acc {s['val_acc']:.4f}, "
-            f"poison_acc {s['poison_acc']:.4f} at round {s['round']}")
+    for chain in (1, 2):
+        for label, cfg in triple().items():
+            s = train.run(cfg.replace(chain=chain))
+            summaries[label, chain] = s
+            log(f"[main] {label} chain {chain}: {s['rounds_per_sec']:.3f} "
+                f"rounds/s ({s['steady_rounds_per_sec']:.3f} steady, after "
+                f"the first dispatch), train_loss {s['train_loss']:.4f}, "
+                f"val_acc {s['val_acc']:.4f}, poison_acc "
+                f"{s['poison_acc']:.4f} at round {s['round']}")
     launches = rlr_fused.LAUNCHES["rlr_fused"]
-    expect = len(triple()) * ROUNDS
-    log(f"[main] rlr_fused launches on the main path: {launches} "
-        f"(expected {expect}: 3 runs x {ROUNDS} rounds, one launch over all "
-        f"{len(leaf_shapes())} leaves a round)")
-    for label, s in summaries.items():
+    replays = compile_cache.GRAPH_REPLAYS["round"]
+    runs = 2 * len(triple())
+    expect = runs * ROUNDS
+    log(f"[main] rlr_fused launches on the main path: {launches} (expected "
+        f"{expect}: {runs} runs x {ROUNDS} rounds, one launch over all "
+        f"{len(leaf_shapes())} leaves a round); round graph replays "
+        f"{replays} (expected {runs * (ROUNDS - 1)}: every round after the "
+        f"first of a run)")
+    for (label, chain), s in summaries.items():
         for key in ("train_loss", "val_acc", "val_loss", "poison_acc",
                     "poison_loss", "rounds_per_sec"):
             if not math.isfinite(s[key]):
@@ -494,9 +736,19 @@ def phase_main_path(rlr_fused) -> int:
         for k, v in s["params"].items():
             if not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"{label}: non-finite params in {k}")
+    for label in triple():
+        a, b = summaries[label, 1], summaries[label, 2]
+        diff = max(float((a["params"][k] - v).abs().max())
+                   for k, v in b["params"].items())
+        log(f"[main] {label}: chain 2 vs chain 1 after {ROUNDS} rounds: max "
+            f"|params diff| {diff:.3e}, val_acc {b['val_acc']:.4f} vs "
+            f"{a['val_acc']:.4f}")
     if launches != expect:
         raise AssertionError(f"rlr_fused launched {launches} times on the "
                              f"main path, expected {expect}")
+    if replays != runs * (ROUNDS - 1):
+        raise AssertionError(f"{replays} round graph replays on the main "
+                             f"path, expected {runs * (ROUNDS - 1)}")
     return launches
 
 
@@ -550,46 +802,110 @@ def phase_server_parity(rlr_fused, record, st) -> None:
     record["max_abs_err"] = max(record["max_abs_err"], worst)
 
 
-def phase_profile(st) -> None:
-    """Where one attack + RLR round's time goes: wall time unprofiled, then
-    one round under torch.profiler for the card's busy time, its idle
-    share, and the kernels that take the most of it."""
+def kernel_table(prof):
+    """Per kernel name (launches, summed ms) of a profile's device events,
+    and the card's busy ms: the union of the kernels' intervals (a graph's
+    independent kernels may overlap, so their summed times may exceed the
+    wall)."""
     from torch.autograd import DeviceType
+
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+            spans.append((e.time_range.start, e.time_range.end))
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return by_name, busy_us / 1e3
+
+
+def phase_profile(st) -> None:
+    """Where one replayed attack + RLR round's time goes: wall time
+    unprofiled, then one round under torch.profiler for its kernels, the
+    card's busy time, its idle share, K1's one launch, and the kernels that
+    take the most."""
     from torch.profiler import ProfilerActivity, profile
 
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+        compile_cache)
+
     round_fn, params, rng = st["round_fn"], st["params"], st["rng"]
-    params, _ = round_fn(params, rng)           # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, _ = round_fn(params, rng)
+    params, _ = round_fn(params, rng)           # warm-up and capture
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    first_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        params, _ = round_fn(params, rng)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    replays = compile_cache.GRAPH_REPLAYS["round"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, _ = round_fn(params, rng)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    busy_ms = sum(t for _, t in by_name.values())
+    if compile_cache.GRAPH_REPLAYS["round"] != replays + 1:
+        raise AssertionError("the profiled round was not a graph replay")
+    by_name, busy_ms = kernel_table(prof)
+    summed_ms = sum(t for _, t in by_name.values())
     launches = sum(n for n, _ in by_name.values())
     k1 = [(n, t) for name, (n, t) in by_name.items() if K1_KERNEL in name]
     k1_ms = sum(t for _, t in k1)
-    layout = [(n, t) for name, (n, t) in by_name.items()
-              if "nhwcToNchw" in name or "nchwToNhwc" in name]
-    log(f"[profile] one attack+RLR round: wall {wall_ms:.1f} ms unprofiled, "
-        f"{prof_wall_ms:.1f} ms profiled; card busy {busy_ms:.1f} ms in "
-        f"{launches} kernels (idle share {1 - busy_ms / prof_wall_ms:.3f} "
-        f"of the profiled round); rlr_fused {k1_ms:.4f} ms in "
-        f"{sum(n for n, _ in k1)} launch(es); layout conversions "
-        f"(nhwcToNchw / nchwToNhwc kernels) {sum(t for _, t in layout):.2f} "
-        f"ms in {sum(n for n, _ in layout)} launches")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+    cfg = st["cfg"]
+    steps = cfg.local_ep * (st["images"].shape[1] // cfg.bs)
+    log(f"[profile] one attack+RLR round, a graph replay after a first "
+        f"round of {first_ms:.1f} ms (eager warm-up + capture): wall "
+        f"{statistics.median(walls):.1f} ms unprofiled (median of "
+        f"{', '.join(f'{w:.1f}' for w in walls)}), {prof_wall_ms:.1f} ms "
+        f"profiled; card busy {busy_ms:.1f} ms (kernel times summed "
+        f"{summed_ms:.1f} ms: some overlap) in {launches} kernels "
+        f"({launches / steps:.0f} a batched step over {steps} steps, the "
+        f"draws included), idle share {1 - busy_ms / prof_wall_ms:.3f} of "
+        f"the profiled round; rlr_fused {k1_ms:.4f} ms in "
+        f"{sum(n for n, _ in k1)} launch(es)")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"[profile]   {t:9.2f} ms {n:6d}x  {name[:90]}")
+    if not by_name:
+        raise AssertionError("the profiler saw no kernel of the replayed "
+                             "round")
+    # the same replayed round with the agents trained in chunks (the
+    # memory lever; chunk 1 trains one agent at a time, ungrouped)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    # and with cuDNN choosing its algorithms by timing them (benchmark)
+    line = []
+    for chunk, bench in ((1, False), (2, False), (5, False), (0, True),
+                         (1, True)):
+        torch.backends.cudnn.benchmark = bench
+        try:
+            fn = rounds.make_round_fn(cfg.replace(agent_chunk=chunk),
+                                      st["model"], st["norm"], st["images"],
+                                      st["labels"], st["fed"].train.sizes)
+            r = rounds.RoundRNG(cfg.seed, DEVICE)
+            p, _ = fn(st["params"], r)
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, _ = fn(p, r)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        line.append(f"chunk {chunk or 'none'}{', cuDNN benchmark' * bench} "
+                    f"{min(times):.1f} ms")
+        del fn, p
+    log(f"[profile] the replayed round (the faster of two) with "
+        f"--agent_chunk: {'; '.join(line)} (whole block "
+        f"{statistics.median(walls):.1f} ms)")
     if [n for n, _ in k1] != [1]:
         raise AssertionError(f"the profiled round launched rlr_fused "
                              f"{sum(n for n, _ in k1)} times, expected once")
@@ -738,7 +1054,6 @@ def sharded_rank(rank: int, world: int, port: int) -> None:
 def profile_round(fn):
     """Wall time of one call of fn under torch.profiler, this process's card
     busy time in it, its idle share, and the kernels taking the most."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -747,12 +1062,7 @@ def profile_round(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    busy_ms = sum(t for _, t in by_name.values())
+    by_name, busy_ms = kernel_table(prof)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "kernels": sum(n for n, _ in by_name.values()),
             "top": sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]}
@@ -859,10 +1169,14 @@ def phase_sharded(rlr_fused, record, st) -> None:
               torch.backends.cudnn.benchmark)
     _strict_numerics()
     try:
+        # the dense round trained in chunks of a rank's block: each agent
+        # then goes through the same batched kernels as on its rank (48
+        # steps of SGD would amplify the f32 differences of other group
+        # sizes to the round's one-ulp spread, phase batched)
         dense1, dinfo = rounds.make_round_fn(
-            cfg, st["model"], st["norm"], st["images"], st["labels"],
-            st["fed"].train.sizes)(st["params"], rounds.RoundRNG(cfg.seed,
-                                                                  DEVICE))
+            cfg.replace(agent_chunk=M // world), st["model"], st["norm"],
+            st["images"], st["labels"], st["fed"].train.sizes,
+            capture=False)(st["params"], rounds.RoundRNG(cfg.seed, DEVICE))
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = strict
@@ -870,8 +1184,9 @@ def phase_sharded(rlr_fused, record, st) -> None:
                for k, v in ranks[0]["params1"].items())
     loss_rel = abs(ranks[0]["train_loss1"] - float(dinfo["train_loss"])) / abs(
         float(dinfo["train_loss"]))
-    log(f"[sharded] round 1 from the seed, sharded vs dense (the same slot "
-        f"draws, cuDNN deterministic, TF32 off): max |params diff| "
+    log(f"[sharded] round 1 from the seed, sharded vs dense in chunks of "
+        f"{M // world} (the same slot draws, cuDNN deterministic, TF32 off): "
+        f"max |params diff| "
         f"{diff:.3e} (tolerance {TOL}), train_loss rel diff {loss_rel:.3e} "
         f"(tolerance 1e-4)")
     # local training runs the same kernels on the same card; only the
@@ -977,16 +1292,18 @@ def main() -> int:
                            "learning_rate_tpu/ops/pallas_rlr.py:130"}
     st = {}
 
-    def server_parity():
+    def batched():
         st.update(round_setup())
-        phase_server_parity(rlr_fused, record, st)
+        phase_batched(st)
 
     phases = (("build", lambda: phase_build(rlr_fused)),
               ("kernels", lambda: phase_kernels(rlr_fused, record)),
               ("k2", lambda: phase_k2(rlr_fused, record2)),
+              ("batched", batched),
               ("main path", lambda: record.update(
                   launches=phase_main_path(rlr_fused))),
-              ("server parity", server_parity),
+              ("server parity", lambda: phase_server_parity(rlr_fused,
+                                                            record, st)),
               ("profile", lambda: phase_profile(st)),
               ("sharded", lambda: phase_sharded(rlr_fused, record2, st)),
               ("nccl d=1", phase_nccl))

@@ -1,6 +1,6 @@
 """Main-path configuration: the JAX CLI's flag names and defaults, cut to
 the fields the port runs (slice 1's dense round, slice 2's sharded round
-and health lanes).
+and health lanes, slice 4's batched local training and chained round).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
@@ -27,6 +27,7 @@ from typing import Optional
 AGGRS = ("avg", "sign")     # the rules the port has (ops/aggregate.py)
 AGG_LAYOUTS = ("leaf", "bucket")    # JAX's choices; bucket is not ported
 HEALTH_LEVELS = ("on", "off")
+TRAIN_LAYOUTS = ("vmap", "megabatch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +67,11 @@ class Config:
     agg_layout: str = "leaf"        # leaf (per-leaf all_reduces) | bucket
     # --- in-round health lanes (JAX health/sentinel.py) ---
     health: str = "on"              # on | off
+    # --- local-training layout and dispatch (JAX fl/rounds.py) ---
+    train_layout: str = "vmap"      # vmap | megabatch (fl/client.py)
+    agent_chunk: int = 0            # >0: train agents in sequential chunks
+                                    # of this size; must divide the block
+    chain: int = 1                  # rounds per dispatch (capped at snap)
     # --- port-only ---
     device: str = "cuda"
     use_fused: bool = True
@@ -132,6 +138,9 @@ def args_parser(argv: Optional[list] = None) -> Config:
     if cfg.health not in HEALTH_LEVELS:
         raise ValueError(f"--health must be one of {HEALTH_LEVELS}, got "
                          f"{cfg.health!r}")
+    if cfg.train_layout not in TRAIN_LAYOUTS:
+        raise ValueError(f"--train_layout must be one of {TRAIN_LAYOUTS}, "
+                         f"got {cfg.train_layout!r}")
     return cfg
 
 
@@ -154,4 +163,6 @@ def print_exp_details(cfg: Config) -> None:
     print(f"    Clip: {cfg.clip}")
     print(f"    Seed: {cfg.seed}  Device: {cfg.device}  "
           f"Fused server step: {cfg.use_fused}  Mesh: {cfg.mesh}")
+    print(f"    Train layout: {cfg.train_layout}  Agent chunk: "
+          f"{cfg.agent_chunk}  Chain: {cfg.chain}")
     print("======================================")

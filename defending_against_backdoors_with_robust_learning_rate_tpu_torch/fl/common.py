@@ -1,7 +1,7 @@
 """Shared pieces of the train/eval compute path.
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
-fl/common.py` (`make_normalizer`, `masked_ce`).
+fl/common.py` (`make_normalizer`, `masked_ce`, `masked_ce_segments`).
 """
 
 from __future__ import annotations
@@ -39,3 +39,21 @@ def masked_ce(logits, labels, weights):
     ce = F.cross_entropy(logits, labels, reduction="none")
     w = weights.to(torch.float32)
     return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def masked_ce_segments(logits, labels, weights, num_segments: int):
+    """`masked_ce` over a client-folded [m*bs, ...] megabatch: one
+    cross-entropy pass over the flat batch, then each client's mean from
+    the sum over its [bs] segment of the fold. The per-client step masks
+    arrive folded into `weights`, so a masked-out sample adds nothing to its
+    client's mean; the arithmetic of `masked_ce` per client, reorganized
+    (the reduction order may differ in the last bit). The megabatch trainer
+    takes its grads and losses from the client-batched `masked_ce`, as JAX
+    does; this is their oracle. Returns (total_loss, per_client_loss [m],
+    per_client_weight [m])."""
+    ce = F.cross_entropy(logits, labels, reduction="none")
+    w = weights.to(torch.float32)
+    seg_ce = torch.sum((ce * w).reshape(num_segments, -1), dim=1)
+    seg_w = torch.sum(w.reshape(num_segments, -1), dim=1)
+    per_client = seg_ce / torch.clamp(seg_w, min=1.0)
+    return torch.sum(per_client), per_client, seg_w

@@ -1,26 +1,35 @@
-"""The FL round: sample m of K agents, train each locally, run the server
-step.
+"""The FL round: sample m of K agents, train them locally as one batched
+program, run the server step; on a CUDA device the round's device work is
+one captured CUDA graph.
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
-fl/rounds.py` — the dense device-resident path (`_make_sample_step`,
-`_round_core`, `make_round_fn`) and `_pallas_applicable`. The JAX round is
-one jitted program with the m agents vmapped; here the agents train one
-after another in a Python loop over views of the device-resident
-[K, max_n, ...] stacks, and the server step reads the stacked [m, ...]
-updates.
+fl/rounds.py` — the dense device-resident path (`vmap_agents`,
+`megabatch_agents`, `_run_chunked`, the layout-dispatched
+`make_block_trainer`, `_make_sample_step`, `_round_core`, `make_round_fn`,
+`make_chained`, `make_chained_round_fn`) and `_pallas_applicable`. The JAX
+round is one jitted program with the m agents vmapped and `--chain N`
+rounds scanned in one dispatch. Here the m agents train as one batched
+program (fl/client.make_local_train_batched, layout `--train_layout`, in
+sequential groups of `--agent_chunk`), and on a CUDA device the round's
+device work — the row gathers, the `local_ep x nb` batched steps, the
+server step, the loss mean and the health lanes — is captured once per run
+as one CUDA graph and replayed every round (utils/compile_cache.
+RoundGraph); `make_chained` replays N rounds with no host sync between
+them. On the CPU the round runs eagerly.
 
 Server step: the fused RLR kernel (ops/rlr_fused.py) wherever
 `_fused_applicable` holds, which is the default; ops/aggregate.py
 otherwise.
 
-Randomness comes from a `RoundRNG` seeded from --seed: the sampled ids from
-a CPU generator (they are needed on the host to loop over the agents); each
-sampled slot's shuffles and dropout masks from a generator on the round's
-device seeded from (seed, round, slot) alone, as JAX splits one key per
-slot (parallel/rounds.py:1038), so the dense round and a sharded round on
-any number of ranks draw the same for the same slot; the server noise from
-one more device generator. torch cannot reproduce jax.random streams, so
-the tests inject the sampled ids and permutations and turn dropout off.
+Randomness comes from a `RoundRNG` seeded from --seed, and is drawn on
+the host's order before the device work: the sampled ids from a CPU
+generator; each sampled slot's shuffles and dropout keep-masks
+(fl/client.draw_slot) from a generator on the round's device seeded from
+(seed, round, slot) alone, as JAX splits one key per slot
+(parallel/rounds.py:1038), so the dense round and a sharded round on any
+number of ranks draw the same for the same slot; the server noise from one
+more device generator. torch cannot reproduce jax.random streams, so the
+tests inject the sampled ids and permutations and turn dropout off.
 
 With the health lanes on (--health, the default), the round's info also
 holds the hlth_* lanes of health/sentinel.py.
@@ -34,13 +43,15 @@ import numpy as np
 import torch
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.client import (
-    draw_perms, make_local_train)
+    draw_slot, make_local_train_batched)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     sentinel as health_sentinel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.aggregate import (
-    aggregate_updates, apply_aggregate, robust_lr)
+    aggregate_updates, apply_aggregate, draw_noise, robust_lr)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.rlr_fused import (
     fused_rlr_avg_apply)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+    compile_cache)
 
 
 class RoundRNG:
@@ -79,10 +90,10 @@ def sample_agents(cfg, gen: torch.Generator) -> torch.Tensor:
     return torch.randperm(cfg.num_agents, generator=gen)[:cfg.agents_per_round]
 
 
-def server_step(params, updates, sizes, cfg,
-                gen: Optional[torch.Generator] = None):
+def server_step(params, updates, sizes, cfg, noise=None):
     """New params from the stacked [m, ...] updates and their data sizes
-    [m]: the fused kernel, or robust_lr + aggregate + apply."""
+    [m]: the fused kernel, or robust_lr + aggregate (+ the pre-drawn server
+    noise, ops/aggregate.draw_noise) + apply."""
     thr = float(cfg.robustLR_threshold)
     slr = cfg.effective_server_lr
     if _fused_applicable(cfg):
@@ -90,40 +101,121 @@ def server_step(params, updates, sizes, cfg,
                                    thr, slr, mode=cfg.aggr)
     lr = robust_lr(updates, thr, slr) if thr > 0 else slr
     return apply_aggregate(params, lr,
-                           aggregate_updates(updates, sizes, cfg, gen))
+                           aggregate_updates(updates, sizes, cfg, noise))
+
+
+def _run_chunked(block_fn, params, agents, perms, keep, chunk: int):
+    """block_fn(params, agents, perms, keep) over the whole [m] block, or
+    over sequential [chunk] groups of it with the results concatenated:
+    peak activation memory scales with the agents trained at once, and the
+    results do not depend on the chunking (each agent trains alone)."""
+    m = agents.shape[0]
+    if 0 < chunk < m and m % chunk != 0:
+        raise ValueError(
+            f"--agent_chunk {chunk} does not divide the agent block of {m} "
+            f"(per-device agent count); pick a divisor or 0 for the full "
+            f"block")
+    if chunk <= 0 or chunk >= m:
+        return block_fn(params, agents, perms, keep)
+    parts = [block_fn(params, agents[lo:lo + chunk], perms[lo:lo + chunk],
+                      None if keep is None
+                      else tuple(site[lo:lo + chunk] for site in keep))
+             for lo in range(0, m, chunk)]
+    updates = {k: torch.cat([u[k] for u, _ in parts]) for k in parts[0][0]}
+    return updates, torch.cat([loss for _, loss in parts])
+
+
+def vmap_agents(train, params, agents, perms, keep, chunk: int = 0):
+    """The vmap layout's block (fl/client.make_local_train_batched, layout
+    'vmap'), optionally in sequential chunks of `chunk` agents."""
+    return _run_chunked(train, params, agents, perms, keep, chunk)
+
+
+def megabatch_agents(train, params, agents, perms, keep, chunk: int = 0):
+    """The megabatch layout's block (layout 'megabatch'), optionally in
+    sequential chunks, each chunk folding its own [chunk*bs] batch."""
+    return _run_chunked(train, params, agents, perms, keep, chunk)
+
+
+class BlockTrainer:
+    """The layout-dispatched block trainer over the device-resident
+    [K, max_n, ...] stacks:
+
+    train_block(params, rng, rnd, sampled, lo, hi, perms=None,
+    dropout=True) -> (updates [hi-lo, ...], losses [hi-lo])
+
+    trains the sampled slots lo..hi-1 of round rnd, each with its own slot
+    generator's draws. `perms`, when given, holds every sampled slot's
+    epoch permutations. The dense round trains slots 0..m-1; a rank of the
+    sharded round its block. `draw` (host loop over slots, draws on the
+    device) and `run` (device work only) split the call for the captured
+    round."""
+
+    def __init__(self, cfg, model, normalize, images, labels, sizes_host):
+        self.cfg = cfg
+        self.layout = compile_cache.resolved_train_layout(cfg)
+        self.sites = model.dropout_sites
+        self.images, self.labels = images, labels
+        self.sizes_host = np.asarray(sizes_host)
+        self.sizes_dev = torch.as_tensor(self.sizes_host, device=images.device)
+        train = make_local_train_batched(model, cfg, normalize, self.layout)
+        self._train = (lambda params, agents, perms, keep: train(
+            params, images, labels, agents, self.sizes_dev[agents], perms,
+            keep))
+
+    def draw(self, rng: RoundRNG, rnd: int, sampled, lo: int, hi: int,
+             perms: Optional[Sequence] = None, dropout: bool = True):
+        """(agents [hi-lo] on the device, perms [hi-lo, local_ep, n_total],
+        keep: per dropout site [hi-lo, local_ep, nb, bs, F] bool, or
+        None). Slot by slot, so one slot's f32 temporaries are alive at a
+        time."""
+        device = self.images.device
+        n_total = self.images.shape[1]
+        shapes = self.sites if dropout else ()
+        perm_rows, keep = [], None
+        for i, s in enumerate(range(lo, hi)):
+            slot_perms = slot_keep = None
+            if perms is None or shapes:
+                slot_perms, slot_keep = draw_slot(
+                    rng.slot(rnd, s), int(self.sizes_host[sampled[s]]),
+                    n_total, self.cfg, shapes)
+            if perms is not None:
+                slot_perms = torch.stack([torch.as_tensor(q) for q in
+                                          perms[s]]).to(device)
+            perm_rows.append(slot_perms)
+            if slot_keep is not None:
+                if keep is None:
+                    keep = tuple(torch.empty((hi - lo,) + k.shape,
+                                             dtype=k.dtype, device=device)
+                                 for k in slot_keep)
+                for block, k in zip(keep, slot_keep):
+                    block[i].copy_(k)
+        agents = torch.tensor(list(sampled[lo:hi]), dtype=torch.int64)
+        if device.type == "cuda":
+            # from pinned memory without a sync, so the host can draw the
+            # next round while the card still runs this one
+            agents = agents.pin_memory().to(device, non_blocking=True)
+        return agents, torch.stack(perm_rows), keep
+
+    def run(self, params, agents, perms, keep):
+        block = vmap_agents if self.layout == "vmap" else megabatch_agents
+        return block(self._train, params, agents, perms, keep,
+                     self.cfg.agent_chunk)
+
+    def __call__(self, params, rng: RoundRNG, rnd: int, sampled, lo: int,
+                 hi: int, perms: Optional[Sequence] = None,
+                 dropout: bool = True):
+        return self.run(params, *self.draw(rng, rnd, sampled, lo, hi, perms,
+                                           dropout))
 
 
 def make_block_trainer(cfg, model, normalize, images, labels, sizes_host):
-    """train_block(params, rng, rnd, sampled, lo, hi, perms=None,
-    dropout=True) -> (updates [hi-lo, ...], losses [hi-lo]): local training
-    of the sampled slots lo..hi-1 of round rnd, each with its own slot
-    generator. `perms`, when given, holds every sampled slot's epoch
-    permutations. The dense round trains slots 0..m-1; a rank of the
-    sharded round its block."""
-    local_train = make_local_train(model, cfg, normalize)
-    device = images.device
-    n_total = images.shape[1]
-
-    def train_block(params, rng: RoundRNG, rnd: int, sampled, lo: int,
-                    hi: int, perms: Optional[Sequence] = None,
-                    dropout: bool = True):
-        updates, losses = [], []
-        for s in range(lo, hi):
-            a, gen = sampled[s], rng.slot(rnd, s)
-            size = int(sizes_host[a])
-            slot_perms = (draw_perms(size, n_total, cfg.local_ep, gen, device)
-                          if perms is None else perms[s])
-            up, loss = local_train(params, images[a], labels[a], size,
-                                   slot_perms, gen if dropout else None)
-            updates.append(up)
-            losses.append(loss)
-        stacked = {k: torch.stack([u[k] for u in updates]) for k in params}
-        return stacked, torch.stack(losses)
-
-    return train_block
+    """The layout-dispatched block trainer (`BlockTrainer`)."""
+    return BlockTrainer(cfg, model, normalize, images, labels, sizes_host)
 
 
-def make_round_fn(cfg, model, normalize, images, labels, sizes):
+def make_round_fn(cfg, model, normalize, images, labels, sizes,
+                  capture: Optional[bool] = None):
     """Device-resident round fn:
     round(params, rng, sampled=None, perms=None, dropout=True)
     -> (params, {"train_loss", "sampled", hlth_* lanes}).
@@ -132,12 +224,31 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes):
     the round's device; sizes is the [K] numpy array of true shard sizes.
     `sampled` ([m] ids) and `perms` (per sampled slot, cfg.local_ep
     permutations) replace the draws from `rng`; dropout=False runs local
-    training without dropout."""
-    sizes_host = np.asarray(sizes)
+    training without dropout.
+
+    `capture` (default: on a CUDA device) runs the round's device work as
+    one CUDA graph (utils/compile_cache.RoundGraph): the first round
+    eagerly as warm-up, then every round a replay. The params it returns
+    are then the graph's static buffers, which the next round overwrites;
+    clone them to keep them. capture=False runs every round eagerly, the
+    replay's oracle."""
     device = images.device
-    sizes_dev = torch.as_tensor(sizes_host, dtype=torch.int32, device=device)
-    train_block = make_block_trainer(cfg, model, normalize, images, labels,
-                                     sizes_host)
+    trainer = make_block_trainer(cfg, model, normalize, images, labels,
+                                 sizes)
+    health = health_sentinel.health_on(cfg)
+
+    def device_round(params, agents, perms, keep, noise):
+        updates, losses = trainer.run(params, agents, perms, keep)
+        new_params = server_step(params, updates, trainer.sizes_dev[agents],
+                                 cfg, noise)
+        info = {"train_loss": torch.mean(losses)}
+        if health:
+            info.update(health_sentinel.sentinel(cfg, updates, new_params))
+        return new_params, info
+
+    if capture is None:
+        capture = device.type == "cuda"
+    step = compile_cache.RoundGraph(device_round) if capture else device_round
 
     def round_fn(params, rng: RoundRNG, sampled=None,
                  perms: Optional[Sequence] = None, dropout: bool = True):
@@ -145,14 +256,36 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes):
         if sampled is None:
             sampled = sample_agents(cfg, rng.host)
         sampled = [int(a) for a in sampled]
-        updates, losses = train_block(params, rng, rnd, sampled, 0,
-                                      len(sampled), perms, dropout)
-        idx = torch.as_tensor(sampled, device=device)
-        new_params = server_step(params, updates, sizes_dev[idx], cfg,
-                                 rng.noise)
-        info = {"train_loss": torch.mean(losses), "sampled": sampled}
-        if health_sentinel.health_on(cfg):
-            info.update(health_sentinel.sentinel(cfg, updates, new_params))
-        return new_params, info
+        draws = trainer.draw(rng, rnd, sampled, 0, len(sampled), perms,
+                             dropout)
+        new_params, info = step(params, *draws,
+                                draw_noise(params, cfg, rng.noise))
+        return new_params, {**info, "sampled": sampled}
 
+    round_fn.graph = step if capture else None
     return round_fn
+
+
+def make_chained(round_fn):
+    """chained(params, rng, n) -> (params, info): n rounds of round_fn with
+    no host sync between them (on a CUDA device, n graph replays), the
+    counterpart of JAX's `lax.scan` over a block of rounds. info["sampled"]
+    lists each round's ids; "train_loss" and the hlth_* lanes are stacked
+    [n, ...], each round's copied out before the next replay overwrites
+    it."""
+    def chained(params, rng: RoundRNG, n: int):
+        rows, sampled = [], []
+        for _ in range(n):
+            params, info = round_fn(params, rng)
+            sampled.append(info["sampled"])
+            rows.append({k: v.clone() for k, v in info.items()
+                         if k == "train_loss" or k.startswith("hlth_")})
+        out = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        return params, {**out, "sampled": sampled}
+    return chained
+
+
+def make_chained_round_fn(cfg, model, normalize, images, labels, sizes):
+    """chained(params, rng, n) over this config's round (`make_chained`)."""
+    return make_chained(make_round_fn(cfg, model, normalize, images, labels,
+                                      sizes))

@@ -13,15 +13,19 @@ CNN_CIFAR (src/models.py:33-58): three conv(3x3)+pool stages of 64/128/256
   -> flatten -> dropout -> fc 128 -> relu -> dropout -> fc 256 -> relu
   -> dropout -> fc 10
 
-Dropout draws its mask from an explicit `torch.Generator` passed to
-`forward` (None = no dropout, the eval forward), never from torch's global
-RNG. The flatten is CHW-major here and HWC-major in Flax; that is the one
-layout difference the weight carrier has to undo.
+Dropout takes its masks as an input: `forward(x, keep)` with `keep` a
+tuple of boolean keep-masks, one per dropout site (`dropout_sites` gives
+each site's feature count), drawn before the call
+(fl/client.draw_slot); None is no dropout, the eval forward. The masks are
+inputs because `torch.func.vmap` cannot draw from a `torch.Generator` and a
+captured CUDA graph should not draw at all. The flatten is CHW-major
+here and HWC-major in Flax; that is the one layout difference the weight
+carrier has to undo.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -30,17 +34,19 @@ import torch.nn.functional as F
 DROPOUT_RATE = 0.5
 
 
-def dropout(x: torch.Tensor, gen: Optional[torch.Generator],
-            rate: float = DROPOUT_RATE) -> torch.Tensor:
+KEEP_PROB = 1.0 - DROPOUT_RATE
+
+
+def dropout(x: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
     """Flax `nn.Dropout` arithmetic (keep with prob 1-rate, scale by
-    1/(1-rate)) with the mask drawn from `gen`; identity when gen is None."""
-    if gen is None:
+    1/(1-rate)) under the given keep-mask; identity when keep is None."""
+    if keep is None:
         return x
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=gen, device=x.device,
-                      dtype=x.dtype) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), device=x.device,
-                                                        dtype=x.dtype))
+    return torch.where(keep, x / KEEP_PROB, 0.0)
+
+
+def _site(keep: Optional[Sequence[torch.Tensor]], i: int):
+    return None if keep is None else keep[i]
 
 
 def _flat_features(h: int, w: int, convs: int, pool_each: bool,
@@ -62,13 +68,14 @@ class CNN_MNIST(nn.Module):
         self.Conv_1 = nn.Conv2d(32, 64, 3)
         self.Dense_0 = nn.Linear(_flat_features(h, w, 2, False, 64), 128)
         self.Dense_1 = nn.Linear(128, n_classes)
+        self.dropout_sites = (self.Dense_0.in_features, 128)
 
-    def forward(self, x, dropout_gen: Optional[torch.Generator] = None):
+    def forward(self, x, keep: Optional[Sequence[torch.Tensor]] = None):
         x = F.relu(self.Conv_0(x))
         x = F.relu(self.Conv_1(x))
         x = F.max_pool2d(x, 2)
-        x = dropout(x.flatten(1), dropout_gen)
-        x = dropout(F.relu(self.Dense_0(x)), dropout_gen)
+        x = dropout(x.flatten(1), _site(keep, 0))
+        x = dropout(F.relu(self.Dense_0(x)), _site(keep, 1))
         return self.Dense_1(x)
 
 
@@ -82,11 +89,12 @@ class CNN_CIFAR(nn.Module):
         self.Dense_0 = nn.Linear(_flat_features(h, w, 3, True, 256), 128)
         self.Dense_1 = nn.Linear(128, 256)
         self.Dense_2 = nn.Linear(256, n_classes)
+        self.dropout_sites = (self.Dense_0.in_features, 128, 256)
 
-    def forward(self, x, dropout_gen: Optional[torch.Generator] = None):
+    def forward(self, x, keep: Optional[Sequence[torch.Tensor]] = None):
         for conv in (self.Conv_0, self.Conv_1, self.Conv_2):
             x = F.max_pool2d(F.relu(conv(x)), 2)
-        x = dropout(x.flatten(1), dropout_gen)
-        x = dropout(F.relu(self.Dense_0(x)), dropout_gen)
-        x = dropout(F.relu(self.Dense_1(x)), dropout_gen)
+        x = dropout(x.flatten(1), _site(keep, 0))
+        x = dropout(F.relu(self.Dense_0(x)), _site(keep, 1))
+        x = dropout(F.relu(self.Dense_1(x)), _site(keep, 2))
         return self.Dense_2(x)

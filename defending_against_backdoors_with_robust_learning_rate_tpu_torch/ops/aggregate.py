@@ -25,12 +25,11 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.tree im
 
 
 def rlr_from_sign_sum(sign_sum, threshold, server_lr):
-    """+server_lr where |sign_sum| >= threshold, else -server_lr."""
-    return torch.where(torch.abs(sign_sum) >= threshold,
-                       torch.tensor(server_lr, dtype=torch.float32,
-                                    device=sign_sum.device),
-                       torch.tensor(-server_lr, dtype=torch.float32,
-                                    device=sign_sum.device))
+    """+server_lr where |sign_sum| >= threshold, else -server_lr (f32; the
+    two values are scalars of the kernel, no copy from the host, so the
+    step can sit in a captured CUDA graph)."""
+    return torch.where(torch.abs(sign_sum) >= threshold, float(server_lr),
+                       float(-server_lr)).to(torch.float32)
 
 
 def robust_lr(stacked_updates: Params, threshold, server_lr: float) -> Params:
@@ -66,10 +65,18 @@ def gaussian_noise_like(params_like: Params, gen: torch.Generator,
             for k, x in params_like.items()}
 
 
+def draw_noise(params_like: Params, cfg, gen: torch.Generator):
+    """The round's server noise N(0, noise * clip), drawn before the server
+    step (None without noise): a captured round takes it as an input."""
+    if cfg.noise <= 0:
+        return None
+    return gaussian_noise_like(params_like, gen, cfg.noise * cfg.clip)
+
+
 def aggregate_updates(stacked_updates: Params, data_sizes, cfg,
-                      gen: torch.Generator | None = None) -> Params:
-    """Dispatch on cfg.aggr, plus the optional server noise
-    (src/aggregation.py:26-35)."""
+                      noise: Params | None = None) -> Params:
+    """Dispatch on cfg.aggr, plus the server noise (src/aggregation.py:
+    26-35), drawn beforehand by `draw_noise`."""
     if cfg.aggr == "avg":
         agg = agg_avg(stacked_updates, data_sizes)
     elif cfg.aggr == "sign":
@@ -77,7 +84,9 @@ def aggregate_updates(stacked_updates: Params, data_sizes, cfg,
     else:
         raise ValueError(f"aggr {cfg.aggr!r} is not ported yet")
     if cfg.noise > 0:
-        noise = gaussian_noise_like(agg, gen, cfg.noise * cfg.clip)
+        if noise is None:
+            raise ValueError("--noise > 0: the round draws the server noise "
+                             "first (draw_noise)")
         agg = {k: agg[k] + noise[k] for k in agg}
     return agg
 

@@ -32,7 +32,10 @@ On CUDA tensors the entries launch the hand-written kernels of `csrc/`
 repository root) or raise; nothing falls back to the plain version on the
 card. On CPU tensors they run `rlr_fused_reference` / `rlr_partial_reference`,
 the plain PyTorch versions, leaf by leaf. `LAUNCHES` counts kernel launches
-by kernel, so a run can show that its server step went through them.
+by kernel, so a run can show that its server step went through them. A
+call made while a CUDA graph is being captured launches nothing: it
+counts in `CAPTURED`, and each replay of that graph adds its launches to
+`LAUNCHES` (utils/compile_cache.RoundGraph).
 
 K1 moves (m + 2) * n * 4 bytes, K2 (m + h) * n * 4 for the h halves it
 writes; csrc/rlr_columns.cuh says how the design keeps to that.
@@ -61,6 +64,16 @@ ALIGN = 4               # floats: the 16 bytes of a bulk copy's unit
 MAX_LEAVES = 64         # leaves of one launch's table (csrc/rlr_table.h)
 
 LAUNCHES = {"rlr_fused": 0, "rlr_partial": 0}
+CAPTURED = {"rlr_fused": 0, "rlr_partial": 0}
+
+
+def _launched(name: str) -> None:
+    """One launch of kernel `name` on the current stream, or one captured
+    into the CUDA graph that stream is capturing."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 @functools.cache
@@ -190,7 +203,7 @@ def rlr_fused_leaves(us: Sequence[torch.Tensor], wn: torch.Tensor,
         views += ext.rlr_fused(us[lo:hi], wn, ps[lo:hi], out, offsets[lo:hi],
                                float(threshold), float(server_lr),
                                threshold > 0, mode == "sign")
-        LAUNCHES["rlr_fused"] += 1
+        _launched("rlr_fused")
     return views
 
 
@@ -219,7 +232,7 @@ def rlr_partial_leaves(us: Sequence[torch.Tensor], wn: torch.Tensor,
         ext.rlr_partial(us[lo:hi], wn, out, offsets[lo:hi],
                         -1 if sign_at is None else sign_at,
                         -1 if wsum_at is None else wsum_at)
-        LAUNCHES["rlr_partial"] += 1
+        _launched("rlr_partial")
 
 
 def rlr_fused(u: torch.Tensor, wn: torch.Tensor, p: torch.Tensor,

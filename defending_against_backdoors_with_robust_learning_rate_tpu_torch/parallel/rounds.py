@@ -13,9 +13,12 @@ is one `AgentsGroup.all_reduce_sum_`.
 
 Every rank draws the same sampled ids from the same seeded host generator,
 so sampling needs no collective, and each rank trains only its block of
-slots, each slot with the generator the dense round gives it
+slots as one batched program (fl/rounds.BlockTrainer, the dense round's
+trainer), each slot with the draws the dense round gives it
 (fl/rounds.RoundRNG.slot), so the sharded round equals the dense one for
-the same seed. The new params come out replicated on every rank.
+the same seed. The new params come out replicated on every rank. The
+round runs eagerly: its gloo all_reduces cannot sit in a captured CUDA
+graph, and the sharded chained and captured round is not ported yet.
 
 Server step, leaf layout (`sharded_server_step`): every leaf's partials go
 into one packed buffer (`PackedPlan`) and the round makes one all_reduce

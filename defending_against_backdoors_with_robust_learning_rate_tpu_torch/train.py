@@ -2,10 +2,13 @@
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 train.py` (`run`, `main`, the `RoundEngine` loop and its `_emit_eval_body`
-rows); reference src/federated.py:21-95. The loop is the JAX one's without
-its chaining, checkpoints, async metrics, faults or service hooks: one round
-per iteration, and at each `snap` boundary the clean and poisoned val sets
-are evaluated and the reference's scalars written to metrics.jsonl.
+rows, `dispatch_schedule`); reference src/federated.py:21-95. The loop is
+the JAX one's without its checkpoints, async metrics, faults or service
+hooks: it walks `dispatch_schedule`'s units, one round or a chained block
+of `--chain` rounds (fl/rounds.make_chained: on a card, that many graph
+replays with no host sync between them), and at each `snap` boundary the
+clean and poisoned val sets are evaluated and the reference's scalars
+written to metrics.jsonl, the boundary's one host sync.
 
 The run happens on `cfg.device` (default `cuda`). A run on `cuda` with no
 card raises; it never carries on on the CPU.
@@ -36,7 +39,7 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.common i
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.evaluate import (
     make_eval_fn, pad_eval_set)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
-    RoundRNG, make_round_fn)
+    RoundRNG, make_chained, make_round_fn)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     sentinel as health_sentinel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.registry import (
@@ -47,6 +50,8 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.me
     AgentsGroup, pick_agent_mesh_size)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.rounds import (
     make_sharded_round_fn)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+    compile_cache)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
     MetricsWriter, health_rows, run_name)
 
@@ -62,6 +67,26 @@ def resolve_device(name: str) -> torch.device:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def dispatch_schedule(start, total, snap, chain_n, diagnostics, chaining):
+    """The run loop's dispatch plan (JAX `train.dispatch_schedule`): a list of
+    round-id tuples, one per dispatch — a chained block (len == chain_n)
+    whenever the budget to the next eval boundary allows, else a single
+    round. A chained block never crosses an eval boundary, and a
+    diagnostics run keeps its snap rounds unchained."""
+    units, rnd = [], start
+    while rnd < total:
+        to_eval = min(snap - rnd % snap, total - rnd)
+        diag_boundary = diagnostics and (rnd + to_eval) % snap == 0
+        budget = to_eval - (1 if diag_boundary else 0)
+        if chaining and budget >= chain_n:
+            units.append(tuple(range(rnd + 1, rnd + chain_n + 1)))
+            rnd += chain_n
+        else:
+            units.append((rnd + 1,))
+            rnd += 1
+    return units
 
 
 def _agents_group(cfg: Config) -> Optional[AgentsGroup]:
@@ -111,9 +136,18 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     normalize = make_normalizer(fed.mean, fed.std, device)
     images = torch.from_numpy(fed.train.images).to(device)
     labels = torch.from_numpy(fed.train.labels).to(device, torch.int64)
+    chain_n = compile_cache.chain_budget(cfg)
     if group is None:
         round_fn = make_round_fn(cfg, model, normalize, images, labels,
                                  fed.train.sizes)
+        say(f"[train] layout {compile_cache.resolved_train_layout(cfg)}, "
+            f"agent chunk {cfg.agent_chunk or 'all'}, round "
+            + ("captured as one CUDA graph" if round_fn.graph is not None
+               else "eager"))
+    elif chain_n > 1:
+        raise ValueError("--chain > 1 on the sharded round is not ported "
+                         "yet (the sharded round runs eagerly, one round a "
+                         "dispatch)")
     else:
         m = cfg.agents_per_round
         say(f"[mesh] {group.size} devices on the `agents` axis "
@@ -126,6 +160,11 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                        for a in pad_eval_set(x, y, cfg.eval_bs))
                  for x, y in ((fed.val_images, fed.val_labels),
                               (fed.pval_images, fed.pval_labels)))
+    chained = make_chained(round_fn) if chain_n > 1 else None
+    if chained is not None:
+        say(f"[chain] {chain_n} rounds per dispatch")
+    units = dispatch_schedule(0, cfg.rounds, cfg.snap, chain_n, False,
+                              chained is not None)
     rng = RoundRNG(cfg.seed, device)
     summary: Dict = {}
     cum_poison_acc = 0.0
@@ -133,14 +172,20 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
           else contextlib.nullcontext()) as writer:
         _sync(device)
         t_loop = time.perf_counter()
-        t_steady = None
-        for rnd in range(1, cfg.rounds + 1):
-            params, info = round_fn(params, rng)
-            if rnd == 1:
-                # the first round pays the one-off costs (kernel build,
-                # cuDNN plans, allocator growth); steady time starts after
+        t_steady = r_steady = None
+        for unit in units:
+            if len(unit) > 1:
+                params, stacked = chained(params, rng, len(unit))
+                info = {k: v[-1] for k, v in stacked.items()}
+            else:
+                params, info = round_fn(params, rng)
+            rnd = unit[-1]
+            if t_steady is None:
+                # the first dispatch pays the one-off costs (kernel build,
+                # cuDNN plans, allocator growth, the round's capture);
+                # steady time starts after it
                 _sync(device)
-                t_steady = time.perf_counter()
+                t_steady, r_steady = time.perf_counter(), rnd
             if rnd % cfg.snap or not lead:
                 continue
             val_loss, val_acc, per_class = eval_fn(params, *val)
@@ -166,6 +211,10 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                           cum_poison_acc / rnd, rnd)
             writer.scalar("Train/Loss", vals["train_loss"], rnd)
             writer.scalar("Throughput/Rounds_Per_Sec", rnd / elapsed, rnd)
+            steady = ((rnd - r_steady) / (now - t_steady) if rnd > r_steady
+                      else None)
+            if steady is not None:
+                writer.scalar("Throughput/Steady_Rounds_Per_Sec", steady, rnd)
             for tag, value in health_rows(vals).items():
                 writer.scalar(tag, value, rnd)
             writer.flush()
@@ -174,13 +223,14 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             print(f"| Rnd {rnd}: Poison Loss/Poison Acc: "
                   f"{vals['poison_loss']:.3f} / {vals['poison_acc']:.3f} |")
             summary = {"round": rnd, "rounds_per_sec": rnd / elapsed,
-                       "steady_rounds_per_sec": ((rnd - 1) / (now - t_steady)
-                                                 if rnd > 1 else None),
-                       **vals}
+                       "steady_rounds_per_sec": steady, **vals}
     say("Training has finished!")
     if summary:
+        steady = summary["steady_rounds_per_sec"]
         say(f"[throughput] {summary['rounds_per_sec']:.3f} rounds/sec "
-            f"on {device}, eval included")
+            f"on {device}, eval included"
+            + (f"; {steady:.3f} steady, after the first dispatch"
+               if steady is not None else ""))
     summary["params"] = params
     summary["all_reduces"] = group.calls if group is not None else 0
     return summary

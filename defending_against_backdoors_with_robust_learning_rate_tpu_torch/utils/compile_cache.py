@@ -1,0 +1,129 @@
+"""Program choices of the round, and the round's captured CUDA graph.
+
+Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
+utils/compile_cache.py`, reduced to the fields the port has:
+`resolved_train_layout` and `chain_budget`. The JAX module's AOT bank,
+fingerprints and program families wait for the port's program cache.
+
+`RoundGraph` holds the counterpart of the JAX round being one jitted XLA
+program: the round's device work captured once per run as one CUDA graph
+and replayed every later round.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+from torch.utils import _pytree as pytree
+
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
+    TRAIN_LAYOUTS)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import (
+    rlr_fused)
+
+# graph replays by this process, for a run to show its rounds were replays
+GRAPH_REPLAYS = {"round": 0}
+
+
+def resolved_train_layout(cfg) -> str:
+    """The local-training layout (config.TRAIN_LAYOUTS). JAX degrades
+    megabatch to vmap under --diagnostics, which the port does not have."""
+    if cfg.train_layout not in TRAIN_LAYOUTS:
+        raise ValueError(f"train_layout must be one of {TRAIN_LAYOUTS}, "
+                         f"got {cfg.train_layout!r}")
+    return cfg.train_layout
+
+
+def chain_budget(cfg) -> int:
+    """Rounds per dispatch: --chain capped at --snap, so a chained block
+    never crosses an eval boundary (JAX's budget without diagnostics or
+    the host-sampled mode, which the port does not have)."""
+    return max(1, min(cfg.chain, cfg.snap))
+
+
+def _spec(x):
+    """The structure, shapes and dtypes of a nest of dicts, tuples, None
+    and tensors: what a replay must be given to read its buffers."""
+    leaves, tree = pytree.tree_flatten(x)
+    return tree, [None if t is None else (t.shape, t.dtype) for t in leaves]
+
+
+def _tensors(x):
+    return [t for t in pytree.tree_leaves(x) if t is not None]
+
+
+class RoundGraph:
+    """fn(params, *inputs) -> (new params, outputs) on a CUDA device, run
+    as one captured CUDA graph.
+
+    The first call runs fn eagerly on a side stream (the warm-up: cuDNN
+    plans, cuBLAS workspaces, the kernels' build, the allocator) and
+    returns that result; then it captures fn with `torch.cuda.graph` on
+    static copies of the call's arguments. The captured program ends by
+    copying the new params into the static params buffers, so a replay
+    reads its own output. Every later call copies its arguments into the
+    static buffers (params given back as returned are not copied) and
+    replays. It returns the static params and the graph's output tensors:
+    the next replay overwrites them, as JAX's chained round consumes its
+    donated params. The graph is built once; a call with other shapes,
+    dtypes or structure raises, and a capture that fails raises: nothing
+    falls back to eager on the card.
+
+    Kernels launched inside the capture are not counted as they are
+    captured (ops/rlr_fused.py counts them as captured); each replay adds
+    them to `rlr_fused.LAUNCHES`, since each replay launches them once.
+    """
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.graph = None
+        self._built_for = None
+        self._params: Dict[str, torch.Tensor] = {}
+        self._inputs = None
+        self._outputs = None
+        self._per_replay: Dict[str, int] = {}
+
+    def __call__(self, params, *inputs):
+        if self.graph is None:
+            return self._warm_up_and_capture(params, *inputs)
+        spec = _spec((params, inputs))
+        if spec != self._built_for:
+            raise ValueError(f"the captured round was built for "
+                             f"{self._built_for}, not {spec}")
+        for k, v in params.items():
+            static = self._params[k]
+            if v.data_ptr() != static.data_ptr():
+                static.copy_(v)
+        for static, v in zip(_tensors(self._inputs), _tensors(inputs),
+                             strict=True):
+            static.copy_(v)
+        self.graph.replay()
+        GRAPH_REPLAYS["round"] += 1
+        for name, n in self._per_replay.items():
+            rlr_fused.LAUNCHES[name] += n
+        return self._params, self._outputs
+
+    def _warm_up_and_capture(self, params, *inputs):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            result = self.fn(params, *inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        self._built_for = _spec((params, inputs))
+        self._params = {k: v.detach().to(torch.float32).clone()
+                        for k, v in params.items()}
+        self._inputs = pytree.tree_map_only(torch.Tensor, torch.clone,
+                                            inputs)
+        captured = dict(rlr_fused.CAPTURED)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            new_params, self._outputs = self.fn(self._params, *self._inputs)
+            for k, v in new_params.items():
+                self._params[k].copy_(v)
+        self._per_replay = {k: n - captured[k]
+                            for k, n in rlr_fused.CAPTURED.items()
+                            if n != captured[k]}
+        self.graph = graph
+        return result

@@ -36,6 +36,9 @@ REFERENCE_TAGS = {
 # norm-spike rows are not ported yet)
 HEALTH_TAGS = {"Health/Nonfinite_Updates", "Health/Params_Finite",
                "Health/Update_Norm"}
+# and from the second boundary on, the steady rate after the first dispatch
+# (JAX train.py: Throughput/Steady_Rounds_Per_Sec)
+STEADY_TAG = "Throughput/Steady_Rounds_Per_Sec"
 
 
 def test_cli_two_rounds_writes_reference_tags(tmp_path, capsys):
@@ -62,7 +65,8 @@ def test_cli_two_rounds_writes_reference_tags(tmp_path, capsys):
     assert rows[0]["tag"] == "_run/start"
     for step in (1, 2):
         got = {r["tag"] for r in rows if r["step"] == step}
-        assert got == REFERENCE_TAGS | HEALTH_TAGS, step
+        assert got == (REFERENCE_TAGS | HEALTH_TAGS
+                       | ({STEADY_TAG} if step > 1 else set())), step
     health = {r["tag"]: r["value"] for r in rows if r["step"] == 2
               and r["tag"] in HEALTH_TAGS}
     assert health["Health/Nonfinite_Updates"] == 0.0
