@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives the port (`defending_against_backdoors_with_robust_learning_rate_tpu_torch`,
-never the JAX package) through nine phases and exits non-zero if any
+never the JAX package) through twelve phases and exits non-zero if any
 fails:
 
 1. build: prints the card's name and power limit (nvidia-smi) and builds
@@ -63,9 +63,33 @@ fails:
    step against K1 on the whole stack.
 9. nccl d=1: one sharded round at d = 1 over NCCL in a process of its
    own, configured by the flags a multi-card launch passes.
+10. cifar10: the paper's CIFAR-10 DBA triple (reference src/runner.sh:
+    23-28: 40 agents all sampled, 2 local epochs at bs 256; 4 corrupt
+    agents poisoning half their base-class samples, each with its own
+    quarter of the plus trigger; RLR threshold 8) through `train.run` with
+    CNN_CIFAR for 3 rounds each, then the attack + RLR run on ResNet-9
+    for 2 rounds at --agent_chunk 1, on synthetic data at CIFAR-10's scale
+    (50,000 / 10,000 at 32x32x3). Each run's counts are set to 0 just
+    before it and read just after: K1 once a round, every round after the
+    first a graph replay; each run's peak device memory. Then K1 against
+    its plain version on one round's real updates of each model at m = 40.
+11. fedemnist: the Fed-EMNIST triple (src/runner.sh:34-38: 3,383 users,
+    1% a round, m = 33, 10 local epochs at bs 64, 338 corrupt, threshold
+    8) on the synthetic per-user shards, 6 rounds each, device-resident
+    (what --host_sampled auto picks for 679 MB of stacks) and then
+    host-sampled with --host_prefetch 2, counted as above; the host round
+    against the device-resident round on the same ids and slot draws,
+    eager and captured; wall per round without eval in each mode, and one
+    replayed round of each under torch.profiler (idle share, K1 once).
+12. k1 shapes: K1 at the shapes of phases 10-11 (ResNet-9 and CNN_CIFAR at
+    m = 40, CNN_MNIST at m = 33) against its plain version, timed between
+    CUDA events and as device time beside its byte bound and the plain
+    version's time.
 
 The last two lines of standard output are one JSON object per kernel
-(`{"kernels": [...]}`) and `{"ok": true, "device": {...}}`. Without a CUDA
+(`{"kernels": [...]}`; K1's `launches` counts every main-path run of
+phases 5, 10 and 11, by path in `launches_by_path`, and `shapes` holds
+phase 12's timings) and `{"ok": true, "device": {...}}`. Without a CUDA
 device it exits with 1 before printing any result.
 """
 
@@ -911,6 +935,435 @@ def phase_profile(st) -> None:
                              f"{sum(n for n, _ in k1)} times, expected once")
 
 
+# ---------------------------------------------------------- slice 5 ---
+# the paper's CIFAR-10 DBA and Fed-EMNIST triples (reference
+# src/runner.sh:23-28 and :34-38) at full width, rounds cut
+
+CIFAR_ROUNDS = 3
+RESNET_ROUNDS = 2
+# ResNet-9 trains one agent at a time inside the graph: PR 7 measured the
+# ungrouped convolutions of --agent_chunk 1 at twice the speed of the
+# grouped ones, and one agent's activations at bs 256 (about 1.2 GB) keep
+# the peak far below the card's 80 GB
+RESNET_CHUNK = 1
+FED_ROUNDS = 6
+FED_SNAP = 3
+FED_TIMED = 10              # rounds timed without eval per mode
+
+
+def cifar10_triple():
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
+        Config)
+    base = Config(data="cifar10", num_agents=40, agent_frac=1.0, local_ep=2,
+                  bs=256, client_lr=0.1, client_moment=0.9, aggr="avg",
+                  pattern_type="plus", base_class=5, target_class=7,
+                  rounds=CIFAR_ROUNDS, snap=CIFAR_ROUNDS,
+                  synth_train_size=50000, synth_val_size=10000,
+                  log_dir="build/chip_smoke/logs_cifar10", device=DEVICE)
+    attack = base.replace(num_corrupt=4, poison_frac=0.5)
+    return {"clean": base, "attack": attack,
+            "attack_rlr8": attack.replace(robustLR_threshold=8)}
+
+
+def resnet9_cfg():
+    return cifar10_triple()["attack_rlr8"].replace(
+        arch="resnet9", rounds=RESNET_ROUNDS, snap=RESNET_ROUNDS,
+        agent_chunk=RESNET_CHUNK)
+
+
+def fedemnist_triple():
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
+        Config)
+    # 3,383 users, 1% sampled, 10 local epochs at bs 64; the stand-in's
+    # users hold 16-63 samples (JAX's synthetic shards), drawn without
+    # repeats from a pool of 140,000
+    base = Config(data="fedemnist", num_agents=3383, agent_frac=0.01,
+                  local_ep=10, bs=64, client_lr=0.1, client_moment=0.9,
+                  aggr="avg", pattern_type="plus", base_class=5,
+                  target_class=7, rounds=FED_ROUNDS, snap=FED_SNAP,
+                  synth_train_size=140000, synth_val_size=10000,
+                  log_dir="build/chip_smoke/logs_fedemnist", device=DEVICE)
+    attack = base.replace(num_corrupt=338, poison_frac=0.5)
+    return {"clean": base, "attack": attack,
+            "attack_rlr8": attack.replace(robustLR_threshold=8)}
+
+
+def drive(rlr_fused, what, cfg):
+    """One train.run with the kernel counts and graph replays set to 0
+    just before and read just after: K1 once a round (the first eagerly,
+    then once in each replay), every round after the first a replay, no
+    K2. Returns the summary with the counts, the run's peak device memory
+    (above what the process held before it) and the run's seconds."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
+        train)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+        compile_cache)
+    for k in rlr_fused.LAUNCHES:
+        rlr_fused.LAUNCHES[k] = 0
+    compile_cache.GRAPH_REPLAYS["round"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # by the phases before this run
+    t0 = time.perf_counter()
+    s = train.run(cfg)
+    torch.cuda.synchronize()
+    s["seconds"] = time.perf_counter() - t0
+    s["launches"] = rlr_fused.LAUNCHES["rlr_fused"]
+    s["replays"] = compile_cache.GRAPH_REPLAYS["round"]
+    s["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    log(f"[{what}] {s['rounds_per_sec']:.3f} rounds/s with eval "
+        f"({s['steady_rounds_per_sec']:.3f} steady, after the first "
+        f"dispatch), train_loss {s['train_loss']:.4f}, val_acc "
+        f"{s['val_acc']:.4f}, poison_acc {s['poison_acc']:.4f} at round "
+        f"{s['round']}; K1 {s['launches']} launches, {s['replays']} graph "
+        f"replays; the run's peak device memory {s['peak_gib']:.2f} GiB; "
+        f"{s['seconds']:.1f} s, data built")
+    for key in ("train_loss", "val_acc", "val_loss", "poison_acc",
+                "poison_loss", "rounds_per_sec"):
+        if not math.isfinite(s[key]):
+            raise AssertionError(f"{what}: {key} = {s[key]}")
+    if s["hlth_nonfinite"] != 0 or s["hlth_params_finite"] != 1:
+        raise AssertionError(f"{what}: health lanes {s}")
+    for k, v in s["params"].items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{what}: non-finite params in {k}")
+    if (s["launches"] != cfg.rounds or s["replays"] != cfg.rounds - 1
+            or rlr_fused.LAUNCHES["rlr_partial"]):
+        raise AssertionError(
+            f"{what}: {s['launches']} K1 launches and {s['replays']} "
+            f"replays in {cfg.rounds} rounds, expected {cfg.rounds} and "
+            f"{cfg.rounds - 1}; K2 {rlr_fused.LAUNCHES['rlr_partial']}")
+    return s
+
+
+def k1_against_plain(rlr_fused, params, updates, sizes, thr):
+    """K1 over every leaf of one round's real updates against the plain
+    version leaf by leaf, avg+RLR thr / avg / sign+RLR thr: the largest
+    |kernel - plain| of avg (sign must be exact)."""
+    m = sizes.shape[0]
+    wn = sizes.to(torch.float32) / sizes.to(torch.float32).sum()
+    worst = 0.0
+    for mode, t in (("avg", thr), ("avg", 0.0), ("sign", thr)):
+        before = rlr_fused.LAUNCHES["rlr_fused"]
+        got = rlr_fused.fused_rlr_avg_apply(params, updates, sizes, t, 1.0,
+                                            mode)
+        torch.cuda.synchronize()
+        check_launches(rlr_fused, "rlr_fused", before, len(params),
+                       f"K1 m={m}")
+        for k, p in params.items():
+            want = rlr_fused.rlr_fused_reference(
+                updates[k].reshape(m, -1), wn, p.reshape(-1), t, 1.0,
+                mode).view(p.shape)
+            if mode == "sign":
+                torch.testing.assert_close(got[k], want, atol=0, rtol=0)
+            else:
+                torch.testing.assert_close(got[k], want, atol=TOL, rtol=TOL)
+                worst = max(worst, float((got[k] - want).abs().max()))
+    return worst
+
+
+def phase_cifar10(rlr_fused, record) -> None:
+    """The CIFAR-10 DBA triple through train.run with CNN_CIFAR (40 agents
+    all sampled, 4 corrupt each stamping its quarter of the plus, RLR
+    threshold 8), then the attack + RLR run on ResNet-9; then K1 against
+    its plain version on one round's real updates of each model."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
+        get_federated_data)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        common, rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry)
+
+    launches = 0
+    for label, cfg in cifar10_triple().items():
+        launches += drive(rlr_fused, f"cifar10 {label}", cfg)["launches"]
+    cfg = resnet9_cfg()
+    log(f"[cifar10] ResNet-9, attack + RLR 8, --agent_chunk {cfg.agent_chunk}"
+        f" (one agent at a time inside the round's graph)")
+    s = drive(rlr_fused, "cifar10 resnet9", cfg)
+    launches += s["launches"]
+    # every agent sampled: local_ep passes over the real samples (40 x
+    # 1,250, padded to 1,280); about 0.76 GFLOP forward an example, 3x that
+    # with the backward
+    flop = 3 * 0.76e9 * cfg.local_ep * cfg.synth_train_size
+    steady_s = 1.0 / s["steady_rounds_per_sec"]
+    log(f"[cifar10] ResNet-9 round (eval of 10,000 + "
+        f"poisoned val included): {steady_s:.2f} s steady, about "
+        f"{flop / 1e12:.0f} TFLOP of real samples at f32 (TF32 off): "
+        f"{flop / steady_s / 1e12:.1f} TFLOP/s")
+    record["launches_by_path"]["cifar10"] = launches
+
+    # K1 on real updates at m = 40, each model
+    cfg = cifar10_triple()["attack_rlr8"]
+    fed = get_federated_data(cfg)
+    norm = common.make_normalizer(fed.mean, fed.std, DEVICE)
+    images = torch.from_numpy(fed.train.images).to(DEVICE)
+    labels = torch.from_numpy(fed.train.labels).to(DEVICE, torch.int64)
+    worst = 0.0
+    for arch, c in (("cnn", cfg), ("resnet9", resnet9_cfg())):
+        model = registry.get_model(c.data, c.image_shape, arch=arch)
+        params = registry.init_params(model, c.seed, DEVICE)
+        rng = rounds.RoundRNG(c.seed, DEVICE)
+        sampled = rounds.sample_agents(c, rng.host).tolist()
+        updates, _ = rounds.make_block_trainer(
+            c, model, norm, images, labels, fed.train.sizes)(
+                params, rng, rng.next_round(), sampled, 0, len(sampled))
+        sizes = torch.as_tensor(fed.train.sizes[sampled], device=DEVICE)
+        err = k1_against_plain(rlr_fused, params, updates, sizes, 8.0)
+        log(f"[cifar10] K1 on one round's real updates, {type(model).__name__}"
+            f" (m={len(sampled)}, {len(params)} leaves, "
+            f"{registry.param_count(params):,} values), avg+RLR8 / avg / "
+            f"sign+RLR8: max |kernel - plain| {err:.3e} (sign exact, avg "
+            f"within {TOL})")
+        worst = max(worst, err)
+        del updates
+    record["max_abs_err"] = max(record["max_abs_err"], worst)
+
+
+def host_round_parity(rlr_fused, cfg) -> None:
+    """The host round against the device-resident round on the same ids
+    and slot draws (cuDNN deterministic, TF32 off): eagerly, and captured
+    for two rounds of different ids (round 2 a replay on refilled input
+    buffers), within TOL."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
+        train)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.prefetch import (
+        HostGather)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
+        get_federated_data)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        common, rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+        compile_cache)
+
+    fed = get_federated_data(cfg)
+    if compile_cache.is_host_mode(cfg.replace(host_sampled="auto"), fed):
+        raise AssertionError("auto picked the host-sampled mode for "
+                             f"{fed.train.images.nbytes / 2**20:.0f} MB")
+    model = registry.get_model(cfg.data, cfg.image_shape)
+    norm = common.make_normalizer(fed.mean, fed.std, DEVICE,
+                                  fed.raw_is_normalized)
+    images = torch.from_numpy(fed.train.images).to(DEVICE)
+    labels = torch.from_numpy(fed.train.labels).to(DEVICE, torch.int64)
+    params0 = registry.init_params(model, cfg.seed, DEVICE)
+    gather = HostGather(fed.train, DEVICE)
+    strict = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    _strict_numerics()
+    try:
+        line = []
+        for capture in (False, True):
+            dense = rounds.make_round_fn(cfg, model, norm, images, labels,
+                                         fed.train.sizes, capture=capture)
+            host = rounds.make_round_fn_host(cfg, model, norm,
+                                             fed.train.sizes,
+                                             fed.train.max_n, DEVICE,
+                                             capture=capture)
+            r_dense = rounds.RoundRNG(cfg.seed, DEVICE)
+            r_host = rounds.RoundRNG(cfg.seed, DEVICE)
+            p_dense = p_host = params0
+            replays = compile_cache.GRAPH_REPLAYS["round"]
+            for rnd in (1, 2):
+                ids = train.sample_ids(cfg, rnd)
+                p_dense, i_dense = dense(p_dense, r_dense, sampled=ids)
+                p_host, i_host = host(p_host, r_host,
+                                      *gather(ids).ready())
+                diff = max(float((p_host[k] - v).abs().max())
+                           for k, v in p_dense.items())
+                ldiff = abs(float(i_host["train_loss"])
+                            - float(i_dense["train_loss"]))
+                line.append(f"{'captured' if capture else 'eager'} round "
+                            f"{rnd}: max |params diff| {diff:.3e}, "
+                            f"train_loss diff {ldiff:.3e}")
+                if diff > TOL or ldiff > TOL:
+                    raise AssertionError("the host round left the "
+                                         "device-resident round")
+            made = compile_cache.GRAPH_REPLAYS["round"] - replays
+            if made != (2 if capture else 0):
+                raise AssertionError(f"{made} replays, expected "
+                                     f"{2 if capture else 0}")
+            del dense, host, p_dense, p_host
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = strict
+    log(f"[fedemnist] host round vs device-resident round on the same ids "
+        f"and slot draws (cuDNN deterministic; tolerance {TOL}): "
+        f"{'; '.join(line)}")
+
+
+def timed_rounds(round_fn, params, rng, fetch, n, after_first=None):
+    """Wall per round of n rounds run back to back after one first round
+    (warm-up and capture), eval excluded, one sync at the end; and a
+    profile of one more round: its wall, the card's busy time and its
+    kernels. fetch(i) gives round i's extra arguments; `after_first` runs
+    once the first round is done (nothing may allocate or copy on the card
+    from another thread while a stream captures)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params, _ = round_fn(params, rng, *fetch(0))
+    torch.cuda.synchronize()
+    if after_first is not None:
+        after_first()
+    t0 = time.perf_counter()
+    for i in range(1, n + 1):
+        params, _ = round_fn(params, rng, *fetch(i))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, _ = round_fn(params, rng, *fetch(n + 1))
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_ms = kernel_table(prof)
+    return wall_ms, prof_ms, busy_ms, by_name
+
+
+def phase_fedemnist(rlr_fused, record) -> None:
+    """The Fed-EMNIST triple at 3,383 users, m = 33, 10 local epochs at bs
+    64: device-resident (--host_sampled auto picks it for the stand-in's
+    679 MB of stacks), then host-sampled with --host_prefetch 2; the host
+    round against the device-resident one; wall per round without eval
+    and a replayed host round's idle share."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
+        train)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.prefetch import (
+        HostGather, RoundPrefetcher)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
+        get_federated_data)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        common, rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry)
+
+    launches = 0
+    for mode, extra in (("device-resident", {}),
+                        ("host-sampled", dict(host_sampled="on",
+                                              host_prefetch=2))):
+        for label, cfg in fedemnist_triple().items():
+            launches += drive(rlr_fused, f"fedemnist {mode} {label}",
+                              cfg.replace(**extra))["launches"]
+    record["launches_by_path"]["fedemnist"] = launches
+
+    cfg = fedemnist_triple()["attack_rlr8"]
+    host_round_parity(rlr_fused, cfg)
+
+    # wall per round without eval, each mode; a replayed host round's
+    # idle share
+    fed = get_federated_data(cfg)
+    model = registry.get_model(cfg.data, cfg.image_shape)
+    norm = common.make_normalizer(fed.mean, fed.std, DEVICE,
+                                  fed.raw_is_normalized)
+    params = registry.init_params(model, cfg.seed, DEVICE)
+    images = torch.from_numpy(fed.train.images).to(DEVICE)
+    labels = torch.from_numpy(fed.train.labels).to(DEVICE, torch.int64)
+    dense = rounds.make_round_fn(cfg, model, norm, images, labels,
+                                 fed.train.sizes)
+    d_wall, d_prof, d_busy, _ = timed_rounds(
+        lambda p, r: dense(p, r), params, rounds.RoundRNG(cfg.seed, DEVICE),
+        lambda i: (), FED_TIMED)
+    del dense, images, labels
+    host = rounds.make_round_fn_host(cfg, model, norm, fed.train.sizes,
+                                     fed.train.max_n, DEVICE)
+    gather = HostGather(fed.train, DEVICE)
+    first = gather(train.sample_ids(cfg, 1))
+    prefetch = []
+
+    def start():
+        prefetch.append(RoundPrefetcher(
+            lambda rnd: gather(train.sample_ids(cfg, rnd)),
+            range(2, FED_TIMED + 3), depth=2))
+    try:
+        h_wall, h_prof, h_busy, by_name = timed_rounds(
+            host, params, rounds.RoundRNG(cfg.seed, DEVICE),
+            lambda i: (first if i == 0 else prefetch[0].get(i + 1)).ready(),
+            FED_TIMED, after_first=start)
+    finally:
+        for p in prefetch:
+            p.close()
+    stack_mb = first.images.numel() * first.images.element_size() / 2 ** 20
+    k1 = [(n, t) for name, (n, t) in by_name.items() if K1_KERNEL in name]
+    log(f"[fedemnist] wall per round without eval (m={cfg.agents_per_round},"
+        f" {cfg.local_ep} x 1 steps, the mean over {FED_TIMED} "
+        f"replays run back to back): device-resident {d_wall:.2f} ms, host-sampled "
+        f"{h_wall:.2f} ms ({stack_mb:.1f} MB of gathered images a round, "
+        f"pinned, copied on a side stream, depth 2)")
+    log(f"[fedemnist] one replayed round under the profiler: "
+        f"device-resident wall {d_prof:.2f} ms, card busy {d_busy:.2f} ms, "
+        f"idle share {1 - d_busy / d_prof:.3f}; host-sampled wall "
+        f"{h_prof:.2f} ms, card busy {h_busy:.2f} ms, idle share "
+        f"{1 - h_busy / h_prof:.3f}, K1 {sum(n for n, _ in k1)} launch(es) "
+        f"{sum(t for _, t in k1):.4f} ms")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        log(f"[fedemnist]   {t:9.3f} ms {n:6d}x  {name[:90]}")
+    if [n for n, _ in k1] != [1]:
+        raise AssertionError("the profiled host round did not launch K1 "
+                             "once")
+
+
+def phase_k1_shapes(rlr_fused, record) -> None:
+    """K1 (one launch over every leaf) at the slice's three shapes: time
+    between CUDA events and device time (L2 flushed before each), beside
+    the least time the bytes need and the plain version's time; and the
+    kernel against the plain version on each."""
+    name = torch.cuda.get_device_name(0)
+    rate = hbm_rate(name)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scratch = torch.empty(64 * 2 ** 20, device=DEVICE)     # 256 MB > L2
+
+    def flush():
+        scratch.zero_()
+
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry)
+    shapes = []
+    for label, data, image, arch, m in (
+            ("ResNet-9", "cifar10", (32, 32, 3), "resnet9", 40),
+            ("CNN_CIFAR", "cifar10", (32, 32, 3), "cnn", 40),
+            ("CNN_MNIST", "fedemnist", (28, 28, 1), "cnn", 33)):
+        model = registry.get_model(data, image, arch=arch)
+        leaves = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        params = {k: torch.randn(s, generator=gen, device=DEVICE)
+                  for k, s in leaves.items()}
+        ups = {k: torch.randn((m,) + s, generator=gen, device=DEVICE) * 1e-2
+               for k, s in leaves.items()}
+        sizes = torch.rand(m, generator=gen, device=DEVICE) * 60 + 16
+        err = k1_against_plain(rlr_fused, params, ups, sizes, 8.0)
+        wn = sizes / sizes.sum()
+
+        def kernel_step():
+            return rlr_fused.fused_rlr_avg_apply(params, ups, sizes, 8.0,
+                                                 1.0)
+
+        def plain_step():
+            return {k: rlr_fused.rlr_fused_reference(
+                ups[k].view(m, -1), wn, params[k].view(-1), 8.0, 1.0)
+                for k in params}
+        n = sum(math.prod(s) for s in leaves.values())
+        nbytes, nops = 4 * (m * n + m + 2 * n), 4 * m * n
+        k_ms = time_ms(kernel_step, flush)
+        dev_ms, per_call = device_ms(kernel_step, flush, K1_KERNEL)
+        p_ms = time_ms(plain_step, flush, reps=20)
+        bound_ms = max(nbytes / rate, nops / FP32_FLOPS) * 1e3
+        bound_by = ("bytes" if nbytes / rate >= nops / FP32_FLOPS
+                    else "operations")
+        log(f"[k1-shapes] {label} m={m}, {len(leaves)} leaves, n={n:,} "
+            f"({name}, {rate / 1e12:.2f} TB/s): {per_call:.0f} launch(es), "
+            f"between CUDA events {k_ms:.4f} ms, device time {dev_ms:.4f} "
+            f"ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{nbytes / 1e6:.1f} MB; device time at {bound_ms / dev_ms:.0%} "
+            f"of it); max |kernel - plain| {err:.3e}")
+        shapes.append({"shape": f"{label} m={m}", "leaves": len(leaves),
+                       "n": n, "ms": k_ms, "device_ms": dev_ms,
+                       "plain_ms": p_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by})
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        del params, ups
+    record["shapes"] = shapes
+
+
 def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -1285,7 +1738,8 @@ def main() -> int:
     record = {"name": "rlr_fused", "route": "cuda",
               "source": f"{PKG}/csrc/rlr_fused.cu",
               "replaces": "defending_against_backdoors_with_robust_learning_"
-                          "rate_tpu/ops/pallas_rlr.py:57"}
+                          "rate_tpu/ops/pallas_rlr.py:57",
+              "launches_by_path": {}}
     record2 = {"name": "rlr_partial", "route": "cuda",
                "source": f"{PKG}/csrc/rlr_partial.cu",
                "replaces": "defending_against_backdoors_with_robust_"
@@ -1300,13 +1754,16 @@ def main() -> int:
               ("kernels", lambda: phase_kernels(rlr_fused, record)),
               ("k2", lambda: phase_k2(rlr_fused, record2)),
               ("batched", batched),
-              ("main path", lambda: record.update(
-                  launches=phase_main_path(rlr_fused))),
+              ("main path", lambda: record["launches_by_path"].update(
+                  fmnist=phase_main_path(rlr_fused))),
               ("server parity", lambda: phase_server_parity(rlr_fused,
                                                             record, st)),
               ("profile", lambda: phase_profile(st)),
               ("sharded", lambda: phase_sharded(rlr_fused, record2, st)),
-              ("nccl d=1", phase_nccl))
+              ("nccl d=1", phase_nccl),
+              ("cifar10", lambda: phase_cifar10(rlr_fused, record)),
+              ("fedemnist", lambda: phase_fedemnist(rlr_fused, record)),
+              ("k1 shapes", lambda: phase_k1_shapes(rlr_fused, record)))
     for label, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -1316,11 +1773,14 @@ def main() -> int:
             print(f"chip_smoke: phase {label!r} FAILED", file=sys.stderr)
             return 1
         log(f"[phase] {label}: ok in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [{
-        k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                          "bound_by", "library_ms")} for r in (record,
-                                                               record2)]}))
+    # K1's launches: every main-path run of every slice, each read just
+    # after it (by path in launches_by_path)
+    record["launches"] = sum(record["launches_by_path"].values())
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path", "shapes")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in (record, record2)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

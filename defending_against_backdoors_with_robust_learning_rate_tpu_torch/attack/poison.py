@@ -6,8 +6,10 @@ attack/poison.py` (`select_poison_idxs`, `poison_client_row`,
 and src/agent.py:19-25. The first `num_corrupt` agents stamp
 floor(poison_frac * |base-class samples|) of their samples, chosen by a
 numpy Generator seeded from (seed, agent id), and relabel them to
-`target_class`. The poisoned val set is every base-class val sample, stamped
-and relabeled. Same seeds, same draws: the arrays are byte-equal to the JAX
+`target_class`, each with its own stamp (`build_stamp(..., agent_idx=id)`:
+on cifar10's plus, the agent's DBA quarter of the trigger). The poisoned val
+set is every base-class val sample, stamped with the full pattern and
+relabeled. Same seeds, same draws: the arrays are byte-equal to the JAX
 package's.
 """
 
@@ -39,10 +41,11 @@ def select_poison_idxs(labels: np.ndarray, base_class: int, frac: float,
 def poison_client_row(images_row: np.ndarray, labels_row: np.ndarray,
                       size: int, agent_id: int, cfg,
                       seed_offset: int = 1234) -> np.ndarray:
-    """Poison one agent's padded row in place; returns its [max_n] mask."""
+    """Poison one agent's padded row in place with the agent's own stamp;
+    returns its [max_n] mask."""
     max_n = labels_row.shape[0]
     mask = np.zeros((max_n,), dtype=bool)
-    stamp = build_stamp(cfg.data, cfg.pattern_type)
+    stamp = build_stamp(cfg.data, cfg.pattern_type, agent_idx=agent_id)
     rng = np.random.default_rng(cfg.seed + seed_offset + agent_id)
     valid = np.arange(max_n) < size
     idxs = select_poison_idxs(labels_row, cfg.base_class, cfg.poison_frac,
@@ -75,7 +78,7 @@ def build_poisoned_val(val_images: np.ndarray, val_labels: np.ndarray,
     """All base-class val samples, fully stamped and relabeled
     (reference src/federated.py:42-45, poison_all=True, agent_idx=-1)."""
     idxs = np.nonzero(val_labels == cfg.base_class)[0]
-    stamp = build_stamp(cfg.data, cfg.pattern_type)
+    stamp = build_stamp(cfg.data, cfg.pattern_type, agent_idx=-1)
     imgs = apply_stamp(val_images[idxs], stamp)
     lbls = np.full((len(idxs),), cfg.target_class, dtype=val_labels.dtype)
     return imgs, lbls

@@ -1,6 +1,7 @@
 """Main-path configuration: the JAX CLI's flag names and defaults, cut to
 the fields the port runs (slice 1's dense round, slice 2's sharded round
-and health lanes, slice 4's batched local training and chained round).
+and health lanes, slice 4's batched local training and chained round,
+slice 5's cifar10 and fedemnist data, ResNet-9 and host-sampled round).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
@@ -25,6 +26,10 @@ import math
 from typing import Optional
 
 AGGRS = ("avg", "sign")     # the rules the port has (ops/aggregate.py)
+DATASETS = ("fmnist", "cifar10", "fedemnist", "synthetic")
+ARCHS = ("auto", "cnn", "resnet9")
+HOST_SAMPLED = ("auto", "on", "off")
+PATTERNS = ("plus", "square")   # JAX's copyright/apple are not ported
 AGG_LAYOUTS = ("leaf", "bucket")    # JAX's choices; bucket is not ported
 HEALTH_LEVELS = ("on", "off")
 TRAIN_LAYOUTS = ("vmap", "megabatch")
@@ -33,7 +38,7 @@ TRAIN_LAYOUTS = ("vmap", "megabatch")
 @dataclasses.dataclass(frozen=True)
 class Config:
     # --- reference flag surface (names + defaults as in the JAX Config) ---
-    data: str = "fmnist"            # fmnist | synthetic
+    data: str = "fmnist"            # fmnist | cifar10 | fedemnist | synthetic
     num_agents: int = 10            # K
     agent_frac: float = 1.0         # C, fraction of agents sampled per round
     num_corrupt: int = 0            # first num_corrupt agent ids are malicious
@@ -59,6 +64,7 @@ class Config:
     synth_train_size: int = 2048
     synth_val_size: int = 512
     synth_hardness: float = 0.0
+    arch: str = "auto"              # auto | cnn | resnet9
     # --- multi-card (JAX parallel/multihost.py, parallel/mesh.py) ---
     coordinator: str = ""           # host:port of rank 0's rendezvous
     num_processes: int = 0          # total processes (one per card)
@@ -72,6 +78,12 @@ class Config:
     agent_chunk: int = 0            # >0: train agents in sequential chunks
                                     # of this size; must divide the block
     chain: int = 1                  # rounds per dispatch (capped at snap)
+    # --- host-sampled round (JAX fl/rounds.make_round_fn_host) ---
+    host_prefetch: int = 2          # rounds gathered and copied ahead of
+                                    # the compute (0 = synchronous)
+    host_sampled: str = "auto"      # auto: shard stacks above the device-
+                                    # resident budget (2 GiB) gather on the
+                                    # host per round; on/off forces the mode
     # --- port-only ---
     device: str = "cuda"
     use_fused: bool = True
@@ -90,15 +102,22 @@ class Config:
 
     @property
     def n_classes(self) -> int:
+        # the reference hardcodes 10 everywhere, fedemnist eval included
         return 10
 
     @property
     def image_shape(self):
-        if self.data == "fmnist":
+        if self.data in ("fmnist", "fedemnist"):
             return (28, 28, 1)
-        if self.data == "synthetic":
-            return (8, 8, 1)
+        if self.data in ("cifar10", "synthetic"):
+            return (32, 32, 3) if self.data == "cifar10" else (8, 8, 1)
         raise ValueError(f"unknown dataset {self.data!r}")
+
+    @property
+    def model_arch(self) -> str:
+        if self.arch != "auto":
+            return self.arch
+        return "cnn"
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -109,10 +128,18 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="robust-learning-rate federated learning (PyTorch/CUDA)")
     for f in dataclasses.fields(Config):
-        if f.name == "use_fused":
+        if f.name in ("use_fused", "host_sampled"):
             continue
         p.add_argument(f"--{f.name}", type=type(getattr(d, f.name)),
                        default=getattr(d, f.name))
+    p.add_argument("--host_sampled", choices=HOST_SAMPLED,
+                   default=d.host_sampled,
+                   help="force host-sampled shard gathering on/off "
+                        "(auto: stacks above the 2 GiB device-resident "
+                        "budget gather on host per round)")
+    p.add_argument("--remat", action="store_true",
+                   help="JAX's rematerialization of the model forward "
+                        "(refused: not ported yet)")
     p.add_argument("--no_fused", action="store_true",
                    help="server step through ops/aggregate.py instead of "
                         "the fused RLR kernel")
@@ -123,7 +150,8 @@ def args_parser(argv: Optional[list] = None) -> Config:
     """Parse CLI flags into a Config (JAX `config.args_parser`), refusing
     what the port does not run yet and naming the missing piece."""
     ns = build_parser().parse_args(argv)
-    kw = {k: v for k, v in vars(ns).items() if k != "no_fused"}
+    kw = {k: v for k, v in vars(ns).items()
+          if k not in ("no_fused", "remat")}
     cfg = Config(use_fused=not ns.no_fused, **kw)
     if cfg.aggr not in AGGRS:
         raise ValueError(f"--aggr {cfg.aggr!r} is not ported yet "
@@ -141,7 +169,25 @@ def args_parser(argv: Optional[list] = None) -> Config:
     if cfg.train_layout not in TRAIN_LAYOUTS:
         raise ValueError(f"--train_layout must be one of {TRAIN_LAYOUTS}, "
                          f"got {cfg.train_layout!r}")
+    if cfg.data not in DATASETS:
+        raise ValueError(f"--data must be one of {DATASETS}, got "
+                         f"{cfg.data!r}")
+    if cfg.arch not in ARCHS:
+        raise ValueError(f"--arch must be one of {ARCHS}, got {cfg.arch!r}")
+    if cfg.pattern_type not in PATTERNS:
+        raise ValueError(f"--pattern_type {cfg.pattern_type!r} is not "
+                         f"ported yet (the port has {PATTERNS})")
+    if ns.remat:
+        raise ValueError("--remat (torch.utils.checkpoint) is not ported "
+                         "yet")
+    if cfg.chain > 1 and cfg.host_sampled == "on":
+        raise ValueError(CHAINED_HOST_NOT_PORTED)
     return cfg
+
+
+CHAINED_HOST_NOT_PORTED = (
+    "--chain > 1 with host sampling (JAX make_chained_round_fn_host) is "
+    "not ported yet; the host-sampled round runs one round a dispatch")
 
 
 def print_exp_details(cfg: Config) -> None:
@@ -161,7 +207,8 @@ def print_exp_details(cfg: Config) -> None:
     print(f"    Number of corrupt agents: {cfg.num_corrupt}")
     print(f"    Poison Frac: {cfg.poison_frac}")
     print(f"    Clip: {cfg.clip}")
-    print(f"    Seed: {cfg.seed}  Device: {cfg.device}  "
+    print(f"    Seed: {cfg.seed}  Arch: {cfg.model_arch}  "
+          f"Device: {cfg.device}  "
           f"Fused server step: {cfg.use_fused}  Mesh: {cfg.mesh}")
     print(f"    Train layout: {cfg.train_layout}  Agent chunk: "
           f"{cfg.agent_chunk}  Chain: {cfg.chain}")

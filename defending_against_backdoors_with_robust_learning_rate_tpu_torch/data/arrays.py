@@ -3,13 +3,15 @@
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 data/arrays.py`. Every agent's shard is stacked into one padded array
 `[K, max_n, H, W, C]` (raw pixels, the JAX layout) with the true sizes kept
-for loss masking and weighted FedAvg.
+for loss masking and weighted FedAvg. `stack_uneven_shards` is the numpy
+twin of the JAX package's native `pack_uneven` (tests/test_native.py holds
+the two equal); the port keeps the numpy path.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -52,4 +54,22 @@ def stack_agent_shards(images: np.ndarray, labels: np.ndarray,
             continue
         out_img[a, :len(idxs)] = images[idxs]
         out_lbl[a, :len(idxs)] = labels[idxs]
+    return AgentShards(out_img, out_lbl, sizes)
+
+
+def stack_uneven_shards(shard_images: List[np.ndarray],
+                        shard_labels: List[np.ndarray],
+                        pad_multiple: int = 1) -> AgentShards:
+    """Stack pre-split per-user shards (fed-emnist style, uneven sizes)."""
+    num_agents = len(shard_images)
+    sizes = np.array([len(x) for x in shard_images], dtype=np.int32)
+    max_n = padded_max_n(sizes, pad_multiple)
+    shp = shard_images[0].shape[1:]
+    dtype = shard_images[0].dtype
+    out_img = np.zeros((num_agents, max_n) + shp, dtype=dtype)
+    out_lbl = np.zeros((num_agents, max_n), dtype=np.int32)
+    for a in range(num_agents):
+        n = sizes[a]
+        out_img[a, :n] = shard_images[a]
+        out_lbl[a, :n] = shard_labels[a].astype(np.int32)
     return AgentShards(out_img, out_lbl, sizes)

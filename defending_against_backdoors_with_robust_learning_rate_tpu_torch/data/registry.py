@@ -1,13 +1,18 @@
-"""Dataset registry: FMNIST from its idx files, or the synthetic stand-in.
+"""Dataset registry: fmnist / cifar10 / fedemnist from their on-disk
+formats, or the synthetic stand-ins at their shapes.
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 data/registry.py` (`make_synthetic`, `_read_idx`, `_load_fmnist`,
-`FederatedData`, `get_datasets`, `get_federated_data`). The code that makes
-and reads the arrays is this package's own copy of the JAX package's, so
-the same seed gives byte-equal arrays. Images stay raw pixels (uint8, NHWC)
-because poisoning stamps raw pixels before normalization
-(reference src/utils.py:169-177); normalization happens on the device in
-the train and eval steps (fl/common.make_normalizer).
+`_load_cifar10`, `_to_numpy_pt`, `_load_fedemnist`, `FederatedData`,
+`get_datasets`, `get_federated_data`). The code that makes and reads the
+arrays is this package's own copy of the JAX package's, so the same seed
+gives byte-equal arrays. Images stay raw pixels (uint8 NHWC for fmnist and
+cifar10, already normalized float32 for fedemnist) because poisoning stamps
+raw pixels before normalization (reference src/utils.py:169-177);
+normalization happens on the device in the train and eval steps
+(fl/common.make_normalizer). On disk: FMNIST's idx files, CIFAR-10's
+python pickle batches, Fed-EMNIST's per-user `.pt` files
+(reference src/utils.py:95-124).
 
 The JAX package partitions and packs through its optional native helper
 when that is built, and through numpy otherwise, with identical outputs;
@@ -19,19 +24,22 @@ from __future__ import annotations
 import dataclasses
 import gzip
 import os
+import pickle
 import struct
 from typing import Optional, Tuple
 
 import numpy as np
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.arrays import (
-    AgentShards, stack_agent_shards)
+    AgentShards, stack_agent_shards, stack_uneven_shards)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.partition import (
     distribute_data)
 
 # reference normalization constants (src/utils.py:101, 113-116)
 NORM_STATS = {
     "fmnist": ((0.2860,), (0.3530,)),
+    "cifar10": ((0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)),
+    "fedemnist": ((0.0,), (1.0,)),   # inputs already normalized in the .pt files
     "synthetic": ((0.5,), (0.5,)),
 }
 
@@ -56,6 +64,7 @@ class FederatedData:
     pval_labels: np.ndarray
     mean: np.ndarray                     # [C] normalization mean (of x/255)
     std: np.ndarray                      # [C]
+    raw_is_normalized: bool = False      # fedemnist: skip /255 + mean/std
     synthetic: bool = False
 
 
@@ -104,11 +113,81 @@ def _load_fmnist(data_dir: str) -> Optional[Tuple[RawDataset, RawDataset]]:
     return out[0], out[1]
 
 
+def _load_cifar10(data_dir: str) -> Optional[Tuple[RawDataset, RawDataset]]:
+    base = _find([os.path.join(data_dir, "cifar-10-batches-py"),
+                  os.path.join(data_dir, "cifar10", "cifar-10-batches-py")])
+    if base is None:
+        return None
+
+    def load_batch(name):
+        with open(os.path.join(base, name), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        imgs = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return imgs.astype(np.uint8), np.asarray(d[b"labels"], np.int32)
+
+    tr_i, tr_l = zip(*[load_batch(f"data_batch_{i}") for i in range(1, 6)],
+                     strict=True)
+    te_i, te_l = load_batch("test_batch")
+    return (RawDataset(np.concatenate(tr_i), np.concatenate(tr_l), "cifar10"),
+            RawDataset(te_i, te_l, "cifar10"))
+
+
+def _to_numpy_pt(obj):
+    """(inputs, targets) as numpy from a Fed-EMNIST .pt payload: a dict with
+    "pixels"/"label", an object with `inputs`/`targets` (the reference
+    pickles H5Dataset-like objects, src/utils.py:11-36), or a pair."""
+    import torch
+    if isinstance(obj, dict) and "pixels" in obj:
+        x, y = obj["pixels"], obj["label"]
+    elif hasattr(obj, "inputs") and hasattr(obj, "targets"):
+        x, y = obj.inputs, obj.targets
+    elif isinstance(obj, (tuple, list)) and len(obj) == 2:
+        x, y = obj
+    else:
+        raise ValueError(f"unrecognized .pt payload: {type(obj)}")
+    x = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    y = y.numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+    x = np.asarray(x, np.float32)
+    if x.ndim == 4 and x.shape[1] == 1:          # NCHW -> NHWC
+        x = x.transpose(0, 2, 3, 1)
+    elif x.ndim == 3:
+        x = x[..., None]
+    return x, y.astype(np.int32)
+
+
+def _load_fedemnist(data_dir: str):
+    """(per-user [(images, labels)], val RawDataset), or None. The layout
+    of the reference (src/utils.py:106-109, src/agent.py:17):
+      Fed_EMNIST/fed_emnist_all_valset.pt
+      Fed_EMNIST/user_trainsets/user_{id}_trainset.pt
+    """
+    base = _find([os.path.join(data_dir, "Fed_EMNIST"),
+                  os.path.join(data_dir, "fedemnist")])
+    if base is None:
+        return None
+    import torch
+    val_path = _find([os.path.join(base, "fed_emnist_all_valset.pt")])
+    if val_path is None:
+        return None
+    vx, vy = _to_numpy_pt(torch.load(val_path, weights_only=False))
+    users_dir = os.path.join(base, "user_trainsets")
+    shards = []
+    uid = 0
+    while os.path.exists(os.path.join(users_dir, f"user_{uid}_trainset.pt")):
+        ux, uy = _to_numpy_pt(torch.load(
+            os.path.join(users_dir, f"user_{uid}_trainset.pt"),
+            weights_only=False))
+        shards.append((ux, uy))
+        uid += 1
+    return shards, RawDataset(vx, vy, "fedemnist")
+
+
 # ------------------------------------------------------------- synthetic ---
 
 def make_synthetic(name: str, shape: Tuple[int, int, int], n_train: int,
                    n_val: int, seed: int, n_classes: int = 10,
-                   hardness: float = 0.0) -> Tuple[RawDataset, RawDataset]:
+                   float_normalized: bool = False, hardness: float = 0.0
+                   ) -> Tuple[RawDataset, RawDataset]:
     """Deterministic class-structured data: each class is a fixed random
     prototype image plus pixel noise — linearly separable, so a small CNN
     learns it in a few steps and backdoor dynamics are observable.
@@ -130,7 +209,9 @@ def make_synthetic(name: str, shape: Tuple[int, int, int], n_train: int,
     The trojan patterns are stamped AFTER generation on raw pixels
     (attack/poison.py), so the trigger stays at its fixed location — shifts
     make the task harder without touching the backdoor geometry.
-    hardness=0 reproduces the round-1 data bit-for-bit."""
+    hardness=0 reproduces the round-1 data bit-for-bit. `float_normalized`
+    keeps the [0, 1] float32 pixels (the fedemnist stand-in) instead of
+    uint8."""
     rng = np.random.default_rng(seed)
     h, w, c = shape
     protos = rng.uniform(0.15, 0.85, size=(n_classes, h, w, c))
@@ -160,6 +241,8 @@ def make_synthetic(name: str, shape: Tuple[int, int, int], n_train: int,
             labels = np.where(
                 flip, r.integers(0, n_classes, size=n).astype(np.int32),
                 labels)
+        if float_normalized:
+            return x.astype(np.float32), labels
         return (x * 255.0).astype(np.uint8), labels
 
     tx, ty = gen(n_train, 1, True)
@@ -169,9 +252,11 @@ def make_synthetic(name: str, shape: Tuple[int, int, int], n_train: int,
 
 # -------------------------------------------------------------- registry ---
 
-def get_datasets(cfg) -> Tuple[RawDataset, RawDataset, bool]:
-    """(train, val, synthetic?): FMNIST from `data_dir` when its idx files
-    are there, else the synthetic stand-in at FMNIST's shape."""
+def get_datasets(cfg) -> Tuple[object, RawDataset, bool]:
+    """(train, val, synthetic?): train is a RawDataset, or for fedemnist a
+    list of per-user (images, labels) shards; from `data_dir` when the
+    dataset's files are there, else the synthetic stand-in at its shape
+    (src/utils.py:95-124)."""
     if cfg.data == "fmnist":
         got = _load_fmnist(cfg.data_dir)
         if got is not None:
@@ -180,12 +265,48 @@ def get_datasets(cfg) -> Tuple[RawDataset, RawDataset, bool]:
                                 cfg.synth_val_size, cfg.seed,
                                 hardness=cfg.synth_hardness)
         return tr, va, True
+    if cfg.data == "cifar10":
+        got = _load_cifar10(cfg.data_dir)
+        if got is not None:
+            return got[0], got[1], False
+        tr, va = make_synthetic("cifar10", (32, 32, 3), cfg.synth_train_size,
+                                cfg.synth_val_size, cfg.seed,
+                                hardness=cfg.synth_hardness)
+        return tr, va, True
+    if cfg.data == "fedemnist":
+        got = _load_fedemnist(cfg.data_dir)
+        if got is not None:
+            shards, val = got
+            if len(shards) < cfg.num_agents:
+                raise ValueError(
+                    f"fedemnist: found only {len(shards)} contiguous "
+                    f"user_<id>_trainset.pt shards under {cfg.data_dir!r} but "
+                    f"--num_agents={cfg.num_agents}; refusing to train with "
+                    f"out-of-range agent ids")
+            return shards[:cfg.num_agents], val, False
+        # synthetic non-IID per-user shards, uneven sizes, float-normalized
+        rng = np.random.default_rng(cfg.seed + 7)
+        tr, va = make_synthetic("fedemnist", (28, 28, 1),
+                                cfg.synth_train_size, cfg.synth_val_size,
+                                cfg.seed, float_normalized=True,
+                                hardness=cfg.synth_hardness)
+        sizes = rng.integers(max(8, cfg.bs // 4),
+                             max(16, cfg.bs), size=cfg.num_agents)
+        order = rng.permutation(len(tr.images))
+        shards, pos = [], 0
+        for a in range(cfg.num_agents):
+            n = int(min(sizes[a], len(order) - pos)) or 8
+            idx = order[pos:pos + n] if pos + n <= len(order) else \
+                rng.choice(len(tr.images), size=n)
+            pos += n
+            shards.append((tr.images[idx], tr.labels[idx]))
+        return shards, va, True
     if cfg.data == "synthetic":
         tr, va = make_synthetic("synthetic", cfg.image_shape,
                                 cfg.synth_train_size, cfg.synth_val_size,
                                 cfg.seed, hardness=cfg.synth_hardness)
         return tr, va, True
-    raise ValueError(f"dataset {cfg.data!r} is not ported yet")
+    raise ValueError(f"unknown dataset {cfg.data!r}")
 
 
 def get_federated_data(cfg) -> FederatedData:
@@ -195,12 +316,17 @@ def get_federated_data(cfg) -> FederatedData:
         build_poisoned_val, poison_agent_shards)
 
     train, val, synthetic = get_datasets(cfg)
-    groups = distribute_data(train.labels, cfg.num_agents,
-                             n_classes=cfg.n_classes)
     # pad shards to a multiple of the batch size so the client's batch
     # slicing is exact (fl/client.py)
-    shards = stack_agent_shards(train.images, train.labels, groups,
-                                cfg.num_agents, pad_multiple=cfg.bs)
+    if isinstance(train, list):     # fedemnist-style per-user shards
+        shards = stack_uneven_shards([s[0] for s in train],
+                                     [s[1] for s in train],
+                                     pad_multiple=cfg.bs)
+    else:
+        groups = distribute_data(train.labels, cfg.num_agents,
+                                 n_classes=cfg.n_classes)
+        shards = stack_agent_shards(train.images, train.labels, groups,
+                                    cfg.num_agents, pad_multiple=cfg.bs)
     imgs, lbls, pmask = poison_agent_shards(shards.images, shards.labels,
                                             shards.sizes, cfg)
     shards.images, shards.labels, shards.poison_mask = imgs, lbls, pmask
@@ -211,4 +337,4 @@ def get_federated_data(cfg) -> FederatedData:
         val_images=val.images, val_labels=val.labels,
         pval_images=pv_imgs, pval_labels=pv_lbls,
         mean=np.asarray(mean, np.float32), std=np.asarray(std, np.float32),
-        synthetic=synthetic)
+        raw_is_normalized=(cfg.data == "fedemnist"), synthetic=synthetic)

@@ -10,10 +10,11 @@ import torch
 import torch.nn.functional as F
 
 
-def make_normalizer(mean, std, device):
+def make_normalizer(mean, std, device, raw_is_normalized: bool = False):
     """Raw NHWC pixels -> normalized NCHW float32 model input:
     (x/255 - mean)/std with the reference constants (src/utils.py:101,
-    113-116). The JAX normalizer keeps NHWC for its NHWC model; this one
+    113-116); fedemnist's inputs come normalized (`raw_is_normalized`) and
+    only change layout. The JAX normalizer keeps NHWC for its NHWC model; this one
     moves channels first for the NCHW model. The float conversion copies
     into NCHW strides: for one channel the permuted view's strides
     (H*W, 1, W, 1) read as channels-last, and cuDNN would then run the
@@ -26,8 +27,12 @@ def make_normalizer(mean, std, device):
                             device=device).reshape(1, -1, 1, 1)
 
     def norm(x):
-        x = x.permute(0, 3, 1, 2).to(
-            torch.float32, memory_format=torch.contiguous_format)
+        x = x.permute(0, 3, 1, 2)
+        if raw_is_normalized:
+            # float32 already: `.to` would hand back the permuted view
+            return x.to(torch.float32).clone(
+                memory_format=torch.contiguous_format)
+        x = x.to(torch.float32, memory_format=torch.contiguous_format)
         return (x / 255.0 - mean_t) / std_t
     return norm
 

@@ -17,6 +17,13 @@ as one CUDA graph and replayed every round (utils/compile_cache.
 RoundGraph); `make_chained` replays N rounds with no host sync between
 them. On the CPU the round runs eagerly.
 
+The host-sampled round (`make_round_fn_host`, JAX `make_host_step` /
+`make_round_fn_host`, the fedemnist path: 3,383 users, 1% sampled a round,
+reference src/runner.sh:34-38) takes the round's sampled shards gathered
+on the host into [m, max_n, ...] stacks (train.py, data/prefetch.py) and
+runs the same device work over them: on a CUDA device one captured graph
+whose static input buffers each round refills.
+
 Server step: the fused RLR kernel (ops/rlr_fused.py) wherever
 `_fused_applicable` holds, which is the default; ops/aggregate.py
 otherwise.
@@ -151,17 +158,21 @@ class BlockTrainer:
     device) and `run` (device work only) split the call for the captured
     round."""
 
-    def __init__(self, cfg, model, normalize, images, labels, sizes_host):
+    def __init__(self, cfg, model, normalize, images, labels, sizes_host, *,
+                 device=None, n_total: Optional[int] = None):
         self.cfg = cfg
         self.layout = compile_cache.resolved_train_layout(cfg)
         self.sites = model.dropout_sites
         self.images, self.labels = images, labels
+        # with no stacks of its own (the host round's trainer, whose
+        # gathered stacks come with each `run`) the caller names the device
+        # and the padded shard length
+        self.device = torch.device(device) if images is None else images.device
+        self.n_total = n_total if images is None else images.shape[1]
         self.sizes_host = np.asarray(sizes_host)
-        self.sizes_dev = torch.as_tensor(self.sizes_host, device=images.device)
-        train = make_local_train_batched(model, cfg, normalize, self.layout)
-        self._train = (lambda params, agents, perms, keep: train(
-            params, images, labels, agents, self.sizes_dev[agents], perms,
-            keep))
+        self.sizes_dev = torch.as_tensor(self.sizes_host, device=self.device)
+        self._train = make_local_train_batched(model, cfg, normalize,
+                                               self.layout)
 
     def draw(self, rng: RoundRNG, rnd: int, sampled, lo: int, hi: int,
              perms: Optional[Sequence] = None, dropout: bool = True):
@@ -169,8 +180,7 @@ class BlockTrainer:
         keep: per dropout site [hi-lo, local_ep, nb, bs, F] bool, or
         None). Slot by slot, so one slot's f32 temporaries are alive at a
         time."""
-        device = self.images.device
-        n_total = self.images.shape[1]
+        device, n_total = self.device, self.n_total
         shapes = self.sites if dropout else ()
         perm_rows, keep = [], None
         for i, s in enumerate(range(lo, hi)):
@@ -197,9 +207,18 @@ class BlockTrainer:
             agents = agents.pin_memory().to(device, non_blocking=True)
         return agents, torch.stack(perm_rows), keep
 
-    def run(self, params, agents, perms, keep):
+    def run(self, params, agents, perms, keep, data=None):
+        """Train the block: `agents` index the trainer's stacks, or the
+        (images, labels, sizes) of `data` when given (the host round's
+        gathered [m, ...] stacks, indexed by slot)."""
+        images, labels, sizes = data or (self.images, self.labels,
+                                         self.sizes_dev)
+
+        def train(params, agents, perms, keep):
+            return self._train(params, images, labels, agents, sizes[agents],
+                               perms, keep)
         block = vmap_agents if self.layout == "vmap" else megabatch_agents
-        return block(self._train, params, agents, perms, keep,
+        return block(train, params, agents, perms, keep,
                      self.cfg.agent_chunk)
 
     def __call__(self, params, rng: RoundRNG, rnd: int, sampled, lo: int,
@@ -209,9 +228,28 @@ class BlockTrainer:
                                            dropout))
 
 
-def make_block_trainer(cfg, model, normalize, images, labels, sizes_host):
+def make_block_trainer(cfg, model, normalize, images, labels, sizes_host,
+                       **kw):
     """The layout-dispatched block trainer (`BlockTrainer`)."""
-    return BlockTrainer(cfg, model, normalize, images, labels, sizes_host)
+    return BlockTrainer(cfg, model, normalize, images, labels, sizes_host,
+                        **kw)
+
+
+def _device_round(cfg, trainer):
+    """The round's device work: local training of the block, the server
+    step, the loss mean and the health lanes. `data` as in
+    `BlockTrainer.run`."""
+    health = health_sentinel.health_on(cfg)
+
+    def device_round(params, agents, perms, keep, noise, data=None):
+        updates, losses = trainer.run(params, agents, perms, keep, data)
+        sizes = (trainer.sizes_dev if data is None else data[2])[agents]
+        new_params = server_step(params, updates, sizes, cfg, noise)
+        info = {"train_loss": torch.mean(losses)}
+        if health:
+            info.update(health_sentinel.sentinel(cfg, updates, new_params))
+        return new_params, info
+    return device_round
 
 
 def make_round_fn(cfg, model, normalize, images, labels, sizes,
@@ -235,17 +273,7 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
     device = images.device
     trainer = make_block_trainer(cfg, model, normalize, images, labels,
                                  sizes)
-    health = health_sentinel.health_on(cfg)
-
-    def device_round(params, agents, perms, keep, noise):
-        updates, losses = trainer.run(params, agents, perms, keep)
-        new_params = server_step(params, updates, trainer.sizes_dev[agents],
-                                 cfg, noise)
-        info = {"train_loss": torch.mean(losses)}
-        if health:
-            info.update(health_sentinel.sentinel(cfg, updates, new_params))
-        return new_params, info
-
+    device_round = _device_round(cfg, trainer)
     if capture is None:
         capture = device.type == "cuda"
     step = compile_cache.RoundGraph(device_round) if capture else device_round
@@ -261,6 +289,67 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
         new_params, info = step(params, *draws,
                                 draw_noise(params, cfg, rng.noise))
         return new_params, {**info, "sampled": sampled}
+
+    round_fn.graph = step if capture else None
+    return round_fn
+
+
+def make_host_step(cfg, model, normalize, sizes, n_total: int, device):
+    """The host-sampled round's device work (JAX `make_host_step`):
+    step(params, imgs, lbls, slot_sizes, perms, keep, noise)
+    -> (params, {"train_loss", hlth_* lanes}) over the gathered stacks
+    imgs [m, n_total, H, W, C], lbls [m, n_total] (int64) and slot_sizes
+    [m], slot i training row i with its draws perms[i] and keep. sizes is
+    the [K] numpy array of true shard sizes the draws read;
+    `step.trainer` draws them (`BlockTrainer.draw`). The refusals of JAX's
+    host step (fl/rounds.py:625-671: churn, traffic, buffered aggregation,
+    quarantine, scheduled or in-program attacks) concern features the port
+    does not have."""
+    device = torch.device(device)
+    trainer = make_block_trainer(cfg, model, normalize, None, None, sizes,
+                                 device=device, n_total=n_total)
+    slots = torch.arange(cfg.agents_per_round, device=device)
+    device_round = _device_round(cfg, trainer)
+
+    def step(params, imgs, lbls, slot_sizes, perms, keep, noise):
+        return device_round(params, slots, perms, keep, noise,
+                            (imgs, lbls, slot_sizes))
+    step.trainer = trainer
+    return step
+
+
+def make_round_fn_host(cfg, model, normalize, sizes, n_total: int, device,
+                       capture: Optional[bool] = None):
+    """Host-sampled round fn (JAX `make_round_fn_host`):
+    round(params, rng, ids, imgs, lbls, slot_sizes, perms=None,
+    dropout=True) -> (params, {"train_loss", "sampled", hlth_* lanes}).
+
+    The driver samples the ids (train.sample_ids) and gathers their shards
+    on the host into the stacks of `make_host_step`, on the round's device.
+    Slot i draws from rng.slot(rnd, i) with sizes[ids[i]], as slot i of
+    the device-resident round does, so both rounds give the same params
+    for the same ids. `capture` as in `make_round_fn`: on a CUDA device one
+    CUDA graph whose static inputs (the gathered stacks among them) each
+    round refills."""
+    device = torch.device(device)
+    m = cfg.agents_per_round
+    host_step = make_host_step(cfg, model, normalize, sizes, n_total, device)
+    if capture is None:
+        capture = device.type == "cuda"
+    step = compile_cache.RoundGraph(host_step) if capture else host_step
+
+    def round_fn(params, rng: RoundRNG, ids, imgs, lbls, slot_sizes,
+                 perms: Optional[Sequence] = None, dropout: bool = True):
+        rnd = rng.next_round()
+        ids = [int(a) for a in ids]
+        if len(ids) != m:
+            raise ValueError(f"the host round takes m={m} ids, got "
+                             f"{len(ids)}")
+        _, slot_perms, keep = host_step.trainer.draw(rng, rnd, ids, 0, m,
+                                                     perms, dropout)
+        new_params, info = step(params, imgs, lbls, slot_sizes, slot_perms,
+                                keep, draw_noise(params, cfg, rng.noise))
+        return new_params, {**info, "sampled": ids}
 
     round_fn.graph = step if capture else None
     return round_fn

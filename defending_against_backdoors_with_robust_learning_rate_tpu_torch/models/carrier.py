@@ -12,6 +12,13 @@ flattens NHWC activations HWC-major; torch keeps [cout, cin, kh, kw] and
 - any other Dense_i.kernel -> Dense_i.weight: transposed;
 - biases as they are.
 
+ResNet-9 (models/resnet.py) nests its leaves one or two modules deep:
+"ConvGN_1.Conv_0.weight" is params["ConvGN_1"]["Conv_0"]["kernel"]. Its
+convolutions move as above, a GroupNorm's `scale` becomes its `weight`
+(the bias stays), and its one dense layer follows a global max pool, so
+Dense_0.kernel is only transposed. The leaves come out in the order of
+the torch module's parameters, the order K1's leaf table reads them.
+
 Arrays are numpy on both sides of the carrier, so it moves weights between
 the frameworks without either importing the other.
 """
@@ -24,6 +31,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.resnet import (
+    BLOCKS)
+
 
 def _flatten_geometry(flax_params) -> tuple:
     """(side, channels) of the activation the first dense layer flattens:
@@ -34,8 +44,54 @@ def _flatten_geometry(flax_params) -> tuple:
     return math.isqrt(fan_in // c), c
 
 
+def _is_resnet(names) -> bool:
+    return any(n.split(".")[0].startswith("Residual") for n in names)
+
+
+def _resnet_from_flax(flax_params, device) -> Dict[str, torch.Tensor]:
+    def conv_gn(tree, prefix):
+        gn = tree["GroupNorm_0"]
+        return {f"{prefix}.Conv_0.weight": np.asarray(
+                    tree["Conv_0"]["kernel"], np.float32).transpose(3, 2, 0, 1),
+                f"{prefix}.GroupNorm_0.weight": gn["scale"],
+                f"{prefix}.GroupNorm_0.bias": gn["bias"]}
+
+    out = {}
+    for block in BLOCKS:
+        tree = flax_params[block]
+        if block.startswith("Residual"):
+            for sub in ("ConvGN_0", "ConvGN_1"):
+                out.update(conv_gn(tree[sub], f"{block}.{sub}"))
+        else:
+            out.update(conv_gn(tree, block))
+    out["Dense_0.weight"] = np.asarray(flax_params["Dense_0"]["kernel"]).T
+    out["Dense_0.bias"] = flax_params["Dense_0"]["bias"]
+    return {k: torch.tensor(np.ascontiguousarray(v, np.float32), device=device)
+            for k, v in out.items()}
+
+
+def _resnet_to_flax(params: Dict[str, torch.Tensor]) -> dict:
+    out: dict = {}
+    for name, t in params.items():
+        *mods, leaf = name.split(".")
+        a = t.detach().cpu().numpy()
+        if mods[-1].startswith("Conv_"):
+            leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+        elif mods[-1].startswith("GroupNorm") and leaf == "weight":
+            leaf = "scale"
+        elif mods[-1].startswith("Dense") and leaf == "weight":
+            leaf, a = "kernel", a.T
+        node = out
+        for mod in mods:
+            node = node.setdefault(mod, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return out
+
+
 def params_from_flax(flax_params, device) -> Dict[str, torch.Tensor]:
     """{"Conv_0": {"kernel", "bias"}, ...} of numpy -> {"Conv_0.weight": ...}."""
+    if _is_resnet(flax_params):
+        return _resnet_from_flax(flax_params, device)
     h, c = _flatten_geometry(flax_params)
     out = {}
     for mod in sorted(flax_params, key=lambda k: (not k.startswith("Conv"), k)):
@@ -56,6 +112,8 @@ def params_from_flax(flax_params, device) -> Dict[str, torch.Tensor]:
 
 def flax_from_params(params: Dict[str, torch.Tensor]) -> dict:
     """The inverse of `params_from_flax`: a Flax-layout dict of numpy."""
+    if _is_resnet(params):
+        return _resnet_to_flax(params)
     mods = sorted({name.split(".")[0] for name in params})
     convs = [m for m in mods if m.startswith("Conv")]
     c = params[f"{convs[-1]}.weight"].shape[0]

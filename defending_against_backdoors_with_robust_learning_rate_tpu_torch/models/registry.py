@@ -1,8 +1,8 @@
 """Model registry.
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
-models/registry.py` (`get_model`, `init_params`, `param_count`); reference
-src/models.py:4-8.
+models/registry.py` (`get_model`, `init_params`, `param_count`,
+`flops_per_example`); reference src/models.py:4-8.
 
 The module is built on the meta device: it holds the architecture only and
 draws nothing from torch's global RNG. Parameters live in a separate dict
@@ -20,31 +20,40 @@ import torch
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.cnn import (
     CNN_CIFAR, CNN_MNIST)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.resnet import (
+    ResNet9)
 
 # Flax's lecun_normal: a standard normal truncated to [-2, 2], scaled so the
 # truncated distribution has variance 1/fan_in
 _TRUNC_STD = 0.87962566103423978
 
 
-def get_model(data: str, image_shape, n_classes: int = 10):
-    """fmnist/synthetic -> CNN_MNIST; cifar10 -> CNN_CIFAR (src/models.py:4-8)."""
+def get_model(data: str, image_shape, n_classes: int = 10,
+              arch: str = "cnn"):
+    """fmnist/fedemnist/synthetic -> CNN_MNIST; cifar10 -> CNN_CIFAR
+    (src/models.py:4-8); arch 'resnet9' -> ResNet-9 on any dataset."""
     with torch.device("meta"):
-        if data in ("fmnist", "synthetic"):
+        if arch == "resnet9":
+            return ResNet9(n_classes, image_shape)
+        if data in ("fmnist", "fedemnist", "synthetic"):
             return CNN_MNIST(n_classes, image_shape)
         if data == "cifar10":
             return CNN_CIFAR(n_classes, image_shape)
-    raise ValueError(f"no model for data={data!r}")
+    raise ValueError(f"no model for data={data!r} arch={arch!r}")
 
 
 def init_params(model, seed: int, device) -> Dict[str, torch.Tensor]:
     """Flax's default init in torch layout: kernels lecun_normal, biases 0,
-    drawn in parameter order from a CPU generator seeded with `seed` (so the
-    values do not depend on the device), then moved to `device`."""
+    GroupNorm scales 1, drawn in parameter order from a CPU generator seeded
+    with `seed` (so the values do not depend on the device), then moved to
+    `device`."""
     gen = torch.Generator().manual_seed(seed)
     out = {}
     for name, p in model.named_parameters():
         t = torch.zeros(p.shape, dtype=torch.float32)
-        if name.endswith("weight"):
+        if "GroupNorm" in name and name.endswith("weight"):
+            t.fill_(1.0)
+        elif name.endswith("weight"):
             fan_in = math.prod(p.shape[1:])
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
@@ -55,3 +64,43 @@ def init_params(model, seed: int, device) -> Dict[str, torch.Tensor]:
 
 def param_count(params) -> int:
     return sum(int(x.numel()) for x in params.values())
+
+
+def flops_per_example(data: str, arch: str, image_shape,
+                      n_classes: int = 10):
+    """Analytic forward FLOPs of one example through the registry's model
+    (multiply-accumulates count 2, elementwise tails ignored; a training
+    step is about 3x the forward). None for resnet9, which has no analytic
+    count here, as in JAX."""
+    h, w, c = image_shape
+    if arch == "resnet9":
+        return None
+
+    def conv(h, w, cin, cout, k=3):
+        # VALID 3x3 conv: output (h-2)x(w-2), 2*k*k*cin*cout MACs/pixel
+        ho, wo = h - (k - 1), w - (k - 1)
+        return 2 * k * k * cin * cout * ho * wo, ho, wo
+
+    flops = 0
+    if data in ("fmnist", "fedemnist", "synthetic"):
+        # CNN_MNIST: conv(32) -> conv(64) -> pool2 -> fc128 -> fc10
+        f, h, w = conv(h, w, c, 32)
+        flops += f
+        f, h, w = conv(h, w, 32, 64)
+        flops += f
+        h, w = h // 2, w // 2
+        flat = h * w * 64
+        flops += 2 * flat * 128 + 2 * 128 * n_classes
+        return float(flops)
+    if data == "cifar10":
+        # CNN_CIFAR: [conv(width) -> pool2] x (64, 128, 256) -> fc128
+        # -> fc256 -> fc10
+        cin = c
+        for width in (64, 128, 256):
+            f, h, w = conv(h, w, cin, width)
+            flops += f
+            h, w, cin = h // 2, w // 2, width
+        flat = h * w * 256
+        flops += 2 * flat * 128 + 2 * 128 * 256 + 2 * 256 * n_classes
+        return float(flops)
+    return None

@@ -20,6 +20,16 @@ one process per card over NCCL, launched by `torchrun` (or with
 round (parallel/rounds.py) and the lead rank alone evaluates, writes the
 metrics and prints. `run(cfg, group=...)` takes an `agents` group that the
 caller built (the tests' and chip_smoke.py's ranks sharing one device).
+
+Host-sampled mode (JAX train.py:299-303, :629-695; `--host_sampled`, by
+default when the shard stacks pass utils/compile_cache.
+DEVICE_RESIDENT_BYTES): the stacks stay on the host; each round's ids come
+from `sample_ids` (a numpy generator seeded from the seed and the round,
+JAX's draw exactly), their shards are gathered into [m, ...] stacks and
+copied to the card (data/prefetch.HostGather), `--host_prefetch` rounds
+ahead on a worker thread (data/prefetch.RoundPrefetcher), and the round
+runs on them (fl/rounds.make_round_fn_host). A chained or sharded
+host-sampled round is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,10 +38,13 @@ import contextlib
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
-    Config, args_parser, print_exp_details)
+    CHAINED_HOST_NOT_PORTED, Config, args_parser, print_exp_details)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.prefetch import (
+    HostGather, RoundPrefetcher)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
     get_federated_data)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.common import (
@@ -39,7 +52,7 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.common i
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.evaluate import (
     make_eval_fn, pad_eval_set)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
-    RoundRNG, make_chained, make_round_fn)
+    RoundRNG, make_chained, make_round_fn, make_round_fn_host)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     sentinel as health_sentinel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.registry import (
@@ -89,6 +102,42 @@ def dispatch_schedule(start, total, snap, chain_n, diagnostics, chaining):
     return units
 
 
+def sample_ids(cfg: Config, rnd: int) -> np.ndarray:
+    """Round rnd's m distinct agent ids in host-sampled mode: a generator
+    per round, so a resumed run would continue the same sequence (JAX
+    train.py's `sample_ids`, the same draws)."""
+    rng = np.random.default_rng(cfg.seed * 100_003 + rnd)
+    return rng.choice(cfg.num_agents, cfg.agents_per_round, replace=False)
+
+
+def _host_units(cfg: Config, fed, device, units, stack, say):
+    """get_unit(unit) -> the unit's gathered `Payload` in host-sampled
+    mode. The first unit is gathered in line: its round is the one whose
+    CUDA graph is captured, and no other thread may allocate or copy on
+    the card while a stream captures. From the second on, with
+    --host_prefetch N, a worker gathers up to N units ahead; `stack`
+    closes it."""
+    gather = HostGather(fed.train, device)
+
+    def gather_unit(unit):
+        return gather(sample_ids(cfg, unit[0]))
+    if cfg.host_prefetch <= 0:
+        return gather_unit
+    say(f"[prefetch] host->device pipeline, depth {cfg.host_prefetch}")
+    prefetcher = None
+
+    def get_unit(unit):
+        nonlocal prefetcher
+        if unit == units[0]:
+            return gather_unit(unit)
+        if prefetcher is None:
+            prefetcher = RoundPrefetcher(gather_unit, units[1:],
+                                         depth=cfg.host_prefetch)
+            stack.callback(prefetcher.close)
+        return prefetcher.get(unit)
+    return get_unit
+
+
 def _agents_group(cfg: Config) -> Optional[AgentsGroup]:
     """The `agents` group of a multi-card launch, or None for the dense
     round. A --mesh that asks for several cards from one process raises:
@@ -129,21 +178,30 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
         say(f"[data] no {cfg.data} files under {cfg.data_dir!r}: "
             f"synthetic stand-in, {cfg.synth_train_size} train / "
             f"{cfg.synth_val_size} val")
-    model = get_model(cfg.data, cfg.image_shape, cfg.n_classes)
+    model = get_model(cfg.data, cfg.image_shape, cfg.n_classes,
+                      cfg.model_arch)
     params = init_params(model, cfg.seed, device)
     say(f"[model] {type(model).__name__}: {param_count(params):,} params "
         f"on {device}")
-    normalize = make_normalizer(fed.mean, fed.std, device)
-    images = torch.from_numpy(fed.train.images).to(device)
-    labels = torch.from_numpy(fed.train.labels).to(device, torch.int64)
+    normalize = make_normalizer(fed.mean, fed.std, device,
+                                fed.raw_is_normalized)
     chain_n = compile_cache.chain_budget(cfg)
-    if group is None:
+    host_mode = compile_cache.is_host_mode(cfg, fed)
+    if host_mode:
+        if chain_n > 1:
+            raise ValueError(CHAINED_HOST_NOT_PORTED)
+        if group is not None:
+            raise ValueError("the sharded host-sampled round is not ported "
+                             "yet")
+        say(f"[data] host-sampled mode "
+            f"({fed.train.images.nbytes / 2**30:.1f} GiB of shards)")
+        round_fn = make_round_fn_host(cfg, model, normalize, fed.train.sizes,
+                                      fed.train.max_n, device)
+    elif group is None:
+        images = torch.from_numpy(fed.train.images).to(device)
+        labels = torch.from_numpy(fed.train.labels).to(device, torch.int64)
         round_fn = make_round_fn(cfg, model, normalize, images, labels,
                                  fed.train.sizes)
-        say(f"[train] layout {compile_cache.resolved_train_layout(cfg)}, "
-            f"agent chunk {cfg.agent_chunk or 'all'}, round "
-            + ("captured as one CUDA graph" if round_fn.graph is not None
-               else "eager"))
     elif chain_n > 1:
         raise ValueError("--chain > 1 on the sharded round is not ported "
                          "yet (the sharded round runs eagerly, one round a "
@@ -153,8 +211,15 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
         say(f"[mesh] {group.size} devices on the `agents` axis "
             f"({m // group.size} agents/device), {group.size} process(es)")
         say(f"[agg] {multihost.agg_plan_note(cfg, params, group)}")
+        images = torch.from_numpy(fed.train.images).to(device)
+        labels = torch.from_numpy(fed.train.labels).to(device, torch.int64)
         round_fn = make_sharded_round_fn(cfg, model, normalize, group,
                                          images, labels, fed.train.sizes)
+    if group is None:
+        say(f"[train] layout {compile_cache.resolved_train_layout(cfg)}, "
+            f"agent chunk {cfg.agent_chunk or 'all'}, round "
+            + ("captured as one CUDA graph" if round_fn.graph is not None
+               else "eager"))
     eval_fn = make_eval_fn(model, normalize, cfg.n_classes)
     val, pval = (tuple(torch.from_numpy(a).to(device)
                        for a in pad_eval_set(x, y, cfg.eval_bs))
@@ -169,7 +234,10 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     summary: Dict = {}
     cum_poison_acc = 0.0
     with (MetricsWriter(cfg.log_dir, run_name(cfg)) if lead
-          else contextlib.nullcontext()) as writer:
+          else contextlib.nullcontext()) as writer, \
+            contextlib.ExitStack() as stack:
+        if host_mode:
+            get_unit = _host_units(cfg, fed, device, units, stack, say)
         _sync(device)
         t_loop = time.perf_counter()
         t_steady = r_steady = None
@@ -177,6 +245,8 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             if len(unit) > 1:
                 params, stacked = chained(params, rng, len(unit))
                 info = {k: v[-1] for k, v in stacked.items()}
+            elif host_mode:
+                params, info = round_fn(params, rng, *get_unit(unit).ready())
             else:
                 params, info = round_fn(params, rng)
             rnd = unit[-1]

@@ -2,7 +2,8 @@
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 utils/compile_cache.py`, reduced to the fields the port has:
-`resolved_train_layout` and `chain_budget`. The JAX module's AOT bank,
+`resolved_train_layout`, `chain_budget`, and the host-sampled decision
+(`DEVICE_RESIDENT_BYTES`, `is_host_mode`). The JAX module's AOT bank,
 fingerprints and program families wait for the port's program cache.
 
 `RoundGraph` holds the counterpart of the JAX round being one jitted XLA
@@ -25,6 +26,10 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import 
 # graph replays by this process, for a run to show its rounds were replays
 GRAPH_REPLAYS = {"round": 0}
 
+# above this many stacked-array bytes the driver switches to host-side
+# per-round shard gathering (the fedemnist path), as JAX decides it
+DEVICE_RESIDENT_BYTES = 2 << 30
+
 
 def resolved_train_layout(cfg) -> str:
     """The local-training layout (config.TRAIN_LAYOUTS). JAX degrades
@@ -37,9 +42,18 @@ def resolved_train_layout(cfg) -> str:
 
 def chain_budget(cfg) -> int:
     """Rounds per dispatch: --chain capped at --snap, so a chained block
-    never crosses an eval boundary (JAX's budget without diagnostics or
-    the host-sampled mode, which the port does not have)."""
+    never crosses an eval boundary (JAX's budget without diagnostics, which
+    the port does not have; a chained host-sampled round is not ported,
+    and train.run refuses --chain > 1 there)."""
     return max(1, min(cfg.chain, cfg.snap))
+
+
+def is_host_mode(cfg, fed) -> bool:
+    """The driver's host-sampled decision: --host_sampled on, or auto with
+    the shard stacks above DEVICE_RESIDENT_BYTES."""
+    return (cfg.host_sampled == "on"
+            or (cfg.host_sampled == "auto"
+                and fed.train.images.nbytes > DEVICE_RESIDENT_BYTES))
 
 
 def _spec(x):
