@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives the port (`defending_against_backdoors_with_robust_learning_rate_tpu_torch`,
-never the JAX package) through twelve phases and exits non-zero if any
+never the JAX package) through thirteen phases and exits non-zero if any
 fails:
 
 1. build: prints the card's name and power limit (nvidia-smi) and builds
@@ -85,16 +85,43 @@ fails:
     m = 40, CNN_MNIST at m = 33) against its plain version, timed between
     CUDA events and as device time beside its byte bound and the plain
     version's time.
+13. rules: the robust server rules and the fault model. The FMNIST attack
+    + RLR run (threshold 4) for 4 rounds under each of comed, trmean, krum
+    and rfa, and under avg and comed with the fault regime of
+    scripts/sweep_faults.py (dropout 0.3, scaled threshold, attackers
+    spared, stragglers 0.2 at 1 epoch, NaN payloads 0.1), comed also with
+    --chain 2, and under comed with --quarantine 0,3 (the corrupt agent 0
+    and one honest agent out of every vote); the Fed-EMNIST attack + RLR
+    run host-sampled under comed
+    with the fault regime (6 rounds); then
+    BASELINE.json config 4 (CIFAR-10 ResNet-9, K = 256 agents all sampled,
+    2 local epochs at bs 256, config 3's attack, RLR threshold 8,
+    --agent_chunk 1) for 2 rounds under comed and under krum; each through
+    `train.run` with its counts set to 0 just before and read just after:
+    K1 never launches (the plain server step), every round after the
+    first is a replay; the faults runs' Faults/* rows (Effective_Voters <=
+    m). The replayed round against the eager round for comed, for the
+    comed faults round and for the comed quarantine round (cuDNN
+    deterministic, bit for bit). On one round's
+    real updates at m = 10 (CNN_MNIST) and m = 256 (ResNet-9): each masked
+    rule under an all-ones mask against its dense rule, bit for bit; the
+    rules on the card against the same rules on a CPU copy (all six at
+    m = 10, comed and krum at m = 256; selections exact, sums 1e-6, rfa
+    1e-5 relative L2); each rule's server step between CUDA events, and
+    comed's sort alone; config 4's seconds a round and its peak device
+    memory.
 
 The last two lines of standard output are one JSON object per kernel
 (`{"kernels": [...]}`; K1's `launches` counts every main-path run of
-phases 5, 10 and 11, by path in `launches_by_path`, and `shapes` holds
+phases 5, 10, 11 and 13, by path in `launches_by_path` (phase 13's paths
+at 0: their server step is the plain one), and `shapes` holds
 phase 12's timings) and `{"ok": true, "device": {...}}`. Without a CUDA
 device it exits with 1 before printing any result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import os
@@ -988,12 +1015,14 @@ def fedemnist_triple():
             "attack_rlr8": attack.replace(robustLR_threshold=8)}
 
 
-def drive(rlr_fused, what, cfg):
+def drive(rlr_fused, what, cfg, k1: bool = True):
     """One train.run with the kernel counts and graph replays set to 0
     just before and read just after: K1 once a round (the first eagerly,
-    then once in each replay), every round after the first a replay, no
-    K2. Returns the summary with the counts, the run's peak device memory
-    (above what the process held before it) and the run's seconds."""
+    then once in each replay), or never where `k1` is False (a rule other
+    than avg or sign, or faults: the plain server step), every round after
+    the first a replay, no K2. Returns the summary with the counts, the
+    run's peak device memory (above what the process held before it) and
+    the run's seconds."""
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
         train)
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
@@ -1027,11 +1056,12 @@ def drive(rlr_fused, what, cfg):
     for k, v in s["params"].items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{what}: non-finite params in {k}")
-    if (s["launches"] != cfg.rounds or s["replays"] != cfg.rounds - 1
+    k1_expect = cfg.rounds if k1 else 0
+    if (s["launches"] != k1_expect or s["replays"] != cfg.rounds - 1
             or rlr_fused.LAUNCHES["rlr_partial"]):
         raise AssertionError(
             f"{what}: {s['launches']} K1 launches and {s['replays']} "
-            f"replays in {cfg.rounds} rounds, expected {cfg.rounds} and "
+            f"replays in {cfg.rounds} rounds, expected {k1_expect} and "
             f"{cfg.rounds - 1}; K2 {rlr_fused.LAUNCHES['rlr_partial']}")
     return s
 
@@ -1362,6 +1392,328 @@ def phase_k1_shapes(rlr_fused, record) -> None:
         record["max_abs_err"] = max(record["max_abs_err"], err)
         del params, ups
     record["shapes"] = shapes
+
+
+# --- phase 13: the robust server rules and the fault model -------------
+# BASELINE.json configs[4] ("cifar10 ResNet-9, 256 agents ... comed/krum
+# aggregation + RLR") cut from a pod to one card, rounds only; and the
+# FMNIST attack + RLR run under each robust rule and under the fault
+# regime of scripts/sweep_faults.py
+
+RULES = ("comed", "trmean", "krum", "rfa")
+ALL_RULES = ("avg", "sign") + RULES
+RULES_ROUNDS = 4
+CONFIG4_ROUNDS = 2
+FAULTS = dict(dropout_rate=0.3, rlr_threshold_mode="scaled",
+              faults_spare_corrupt=True, straggler_rate=0.2,
+              straggler_epochs=1, corrupt_rate=0.1, corrupt_mode="nan")
+RULES_DIR = "build/chip_smoke/logs_rules"
+
+
+def config4_cfg(aggr):
+    """BASELINE.json configs[4] on one card: CIFAR-10 at 50,000 / 10,000,
+    ResNet-9, K = 256 agents all sampled (about 195 samples each, padded
+    to one batch of 256), 2 local epochs at bs 256, config 3's attack (4
+    corrupt agents stamping DBA slices of the plus, poison_frac 0.5, RLR
+    threshold 8), one agent at a time inside the round's graph."""
+    return resnet9_cfg().replace(
+        num_agents=256, aggr=aggr, rounds=CONFIG4_ROUNDS,
+        snap=CONFIG4_ROUNDS, log_dir=f"{RULES_DIR}/config4_{aggr}")
+
+
+def rules_fmnist_cfgs():
+    """The FMNIST attack + RLR run (threshold 4) under each robust rule,
+    under avg and comed with the fault regime (comed also chained, two
+    rounds a dispatch), and under comed with the corrupt agent 0 and the
+    honest agent 3 quarantined; and the Fed-EMNIST attack + RLR run under
+    comed with the fault regime on the host-sampled round."""
+    base = triple()["attack_rlr4"].replace(rounds=RULES_ROUNDS)
+    out = {aggr: base.replace(aggr=aggr) for aggr in RULES}
+    out.update({f"{aggr}+faults": base.replace(aggr=aggr, **FAULTS)
+                for aggr in ("avg", "comed")})
+    out["comed+faults chain 2"] = out["comed+faults"].replace(chain=2)
+    out["comed quarantine 0,3"] = base.replace(aggr="comed",
+                                               quarantine="0,3")
+    out["fedemnist host comed+faults"] = fedemnist_triple()[
+        "attack_rlr8"].replace(aggr="comed", host_sampled="on",
+                               host_prefetch=2, **FAULTS)
+    return {k: c.replace(log_dir=os.path.join(
+        RULES_DIR, k.replace(" ", "_").replace(",", "_")))
+        for k, c in out.items()}
+
+
+def fault_rows_of(cfg):
+    """The Faults/* rows of the run's last start in its metrics.jsonl."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
+        run_name)
+    with open(os.path.join(cfg.log_dir, run_name(cfg),
+                           "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    start = max(i for i, r in enumerate(rows) if r["tag"] == "_run/start")
+    return [r for r in rows[start:] if r["tag"].startswith("Faults/")]
+
+
+def rule_outputs(updates, sizes, cfg, mask=None):
+    """Every rule's aggregate of one round's updates (no noise)."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import (
+        aggregate)
+    return {rule: aggregate.aggregate_updates(
+        updates, sizes, cfg.replace(aggr=rule), mask=mask)
+        for rule in ALL_RULES}
+
+
+def rule_gap(rule, got, want):
+    """(ok, text) of a card rule's aggregate against the CPU's, at the
+    tests' tolerances: selections and sign votes equal; avg and trmean
+    within 1e-6 of the aggregate's scale and 1e-6 relative L2; rfa within
+    1e-5 relative L2."""
+    g = torch.cat([got[k].cpu().reshape(-1) for k in want])
+    w = torch.cat([want[k].reshape(-1) for k in want])
+    diff = float((g - w).abs().max())
+    rel = float((g - w).norm() / w.norm())
+    if rule in ("comed", "krum", "sign"):
+        return bool(torch.equal(g, w)), f"{rule} max|diff| {diff:.1e}"
+    if rule == "rfa":
+        return rel < 1e-5, f"{rule} rel L2 {rel:.2e}"
+    return (diff <= 1e-6 * float(w.abs().max()) and rel < 1e-6,
+            f"{rule} max|diff| {diff:.2e} rel L2 {rel:.2e}")
+
+
+def cpu_rules(updates, sizes, cfg, rules):
+    """A worker thread computing `rules` on a CPU copy of the updates (the
+    copy made here, before it starts); the future gives {rule: aggregate}.
+    torch's CPU kernels release the interpreter lock, so the card's work
+    goes on meanwhile; they run on half the cores, leaving the rest to the
+    thread that launches the card's work."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import (
+        aggregate)
+    cpu = {k: v.cpu() for k, v in updates.items()}
+    cpu_sizes = sizes.cpu()
+
+    def work():
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads // 2))
+        try:
+            return {rule: aggregate.aggregate_updates(
+                cpu, cpu_sizes, cfg.replace(aggr=rule)) for rule in rules}
+        finally:
+            torch.set_num_threads(threads)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(work)
+    pool.shutdown(wait=False)
+    return future
+
+
+def check_rules(label, params, updates, sizes, cfg, cpu_future):
+    """One round's real updates on the card: each masked rule (and the
+    masked vote) under an all-ones mask against its dense rule, bit for
+    bit; each rule `cpu_future` computed on a CPU copy (`cpu_rules`)
+    against the same rule on the card; each rule's server step (vote +
+    rule + apply) between CUDA events, and the sort comed and trmean make
+    alone."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
+        masking)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import (
+        aggregate)
+
+    m = sizes.shape[0]
+    t0 = time.perf_counter()
+    ones = torch.ones(m, dtype=torch.bool, device=DEVICE)
+    dense = rule_outputs(updates, sizes, cfg)
+    masked = rule_outputs(updates, sizes, cfg, ones)
+    for rule in ALL_RULES:
+        for k in params:
+            if not torch.equal(masked[rule][k], dense[rule][k]):
+                raise AssertionError(f"{label}: masked {rule} under an "
+                                     f"all-ones mask left the dense rule "
+                                     f"at {k}")
+    thr = float(cfg.robustLR_threshold)
+    vote = aggregate.robust_lr(updates, thr, 1.0)
+    mvote = aggregate.robust_lr(updates, masking.rlr_threshold(cfg, ones),
+                                1.0, mask=ones)
+    if not all(torch.equal(vote[k], mvote[k]) for k in vote):
+        raise AssertionError(f"{label}: the masked vote left the dense one")
+    del masked, vote, mvote
+    log(f"[rules] {label}: every masked rule (avg, sign, comed, trmean, "
+        f"krum, rfa) and the masked RLR vote under an all-ones mask equal "
+        f"the dense ones bit for bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    texts = []
+    for rule, want in cpu_future.result().items():
+        ok, text = rule_gap(rule, dense[rule], want)
+        texts.append(text)
+        if not ok:
+            raise AssertionError(f"{label}: {rule} on the card left the "
+                                 f"CPU's: {text}")
+    log(f"[rules] {label}: card vs CPU on the same updates: "
+        f"{'; '.join(texts)} (waited {time.perf_counter() - t0:.1f} s for "
+        f"the CPU)")
+    del dense
+    times = {}
+    reps = 20 if m <= 64 else 5
+    for rule in ALL_RULES:
+        c = cfg.replace(aggr=rule, use_fused=False)
+        times[rule] = time_ms(lambda c=c: rounds.server_step(
+            params, updates, sizes, c), lambda: None, reps=reps, warmup=2)
+    times["avg (K1)"] = time_ms(lambda: rounds.server_step(
+        params, updates, sizes, cfg.replace(aggr="avg")), lambda: None,
+        reps=reps, warmup=2)
+
+    def sort_alone():
+        # comed's and trmean's torch.sort along the agents, leaf by leaf,
+        # without the vote, the band or the apply
+        for u in updates.values():
+            torch.sort(u, dim=0)
+    times["comed's sort alone"] = time_ms(sort_alone, lambda: None,
+                                          reps=reps, warmup=2)
+    n = sum(p.numel() for p in params.values())
+    log(f"[rules] {label}: server step (RLR vote {thr:g} + rule + apply) "
+        f"over m={m} x {n:,} values, median between CUDA events: "
+        + ", ".join(f"{r} {t:.3f} ms" for r, t in times.items()))
+    return times
+
+
+def replay_vs_eager(label, cfg, st):
+    """The captured round's replay against the eager round, two rounds
+    from the seed, cuDNN deterministic: equal bit for bit."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+        compile_cache)
+
+    strict = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    _strict_numerics()
+    try:
+        out = {}
+        for capture in (True, False):
+            fn = rounds.make_round_fn(cfg, st["model"], st["norm"],
+                                      st["images"], st["labels"],
+                                      st["fed"].train.sizes, capture=capture)
+            r = rounds.RoundRNG(cfg.seed + 11, DEVICE)
+            replays = compile_cache.GRAPH_REPLAYS["round"]
+            p, info = fn(st["params"], r)
+            p, info = fn(p, r)
+            out[capture] = ({k: v.clone() for k, v in p.items()},
+                            {k: v.clone() for k, v in info.items()
+                             if isinstance(v, torch.Tensor)},
+                            compile_cache.GRAPH_REPLAYS["round"] - replays)
+            del fn, p, info
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = strict
+    same = all(torch.equal(out[True][0][k], v)
+               for k, v in out[False][0].items())
+    same_info = all(torch.equal(out[True][1][k], v)
+                    for k, v in out[False][1].items())
+    diff = max(float((out[True][0][k] - v).abs().max())
+               for k, v in out[False][0].items())
+    log(f"[rules] {label}: round 2 replayed vs eager (cuDNN deterministic):"
+        f" params {'equal' if same else 'differ'} (max |diff| {diff:.1e}), "
+        f"info lanes {'equal' if same_info else 'differ'} "
+        f"({', '.join(sorted(out[True][1]))}); replays {out[True][2]} / "
+        f"{out[False][2]}")
+    if out[True][2] != 1 or out[False][2] != 0:
+        raise AssertionError(f"{label}: the captured round did not replay")
+    if not (same and same_info):
+        raise AssertionError(f"{label}: the replayed round left the eager "
+                             f"round")
+
+
+def phase_rules(rlr_fused, record, st) -> None:
+    """The robust rules and the fault model: the FMNIST attack + RLR run
+    under comed, trmean, krum and rfa, under avg and comed with the
+    fault regime (comed also chained) and under comed with a quarantine
+    set, the Fed-EMNIST run host-sampled
+    under comed and faults, then BASELINE.json config 4 (ResNet-9,
+    m = 256) under comed and under krum, each through train.run with its
+    counts read: K1
+    never, every round after the first a replay; the Faults/* rows; the
+    replay against the eager round; and the rules on one round's real
+    updates at m = 10 and m = 256."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
+        get_federated_data)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        common, rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry)
+
+    st = st or round_setup()
+    launches = 0
+    for label, cfg in rules_fmnist_cfgs().items():
+        s = drive(rlr_fused, f"rules {label}", cfg, k1=False)
+        launches += s["launches"]
+        if cfg.faults_enabled:
+            rows = fault_rows_of(cfg)
+            steps = sorted({r["step"] for r in rows})
+            voters = [r["value"] for r in rows
+                      if r["tag"] == "Faults/Effective_Voters"]
+            if (steps != list(range(cfg.snap, cfg.rounds + 1, cfg.snap))
+                    or len(rows) != 3 * len(steps)
+                    or not all(0 <= v <= cfg.agents_per_round
+                               for v in voters)):
+                raise AssertionError(f"{label}: Faults/* rows {rows}")
+            log(f"[rules] {label}: Faults/* rows at rounds {steps}: "
+                + "; ".join(f"{r['tag']} {r['value']:g}" for r in rows))
+    record["launches_by_path"]["rules"] = launches
+
+    for label in ("comed", "comed+faults", "comed quarantine 0,3"):
+        replay_vs_eager(f"fmnist {label}", rules_fmnist_cfgs()[label], st)
+
+    cfg = st["cfg"]
+    sampled = rounds.sample_agents(cfg, st["rng"].host).tolist()
+    updates, _ = rounds.make_block_trainer(
+        cfg, st["model"], st["norm"], st["images"], st["labels"],
+        st["fed"].train.sizes)(st["params"], st["rng"], st["rng"].next_round(),
+                               sampled, 0, len(sampled))
+    sizes = torch.as_tensor(st["fed"].train.sizes[sampled], device=DEVICE)
+    times10 = check_rules(f"CNN_MNIST m={len(sampled)}", st["params"],
+                          updates, sizes, cfg,
+                          cpu_rules(updates, sizes, cfg, ALL_RULES))
+    del updates
+
+    # one round's real updates at m = 256, eagerly; the CPU's comed and
+    # krum on a copy of them run in a worker thread meanwhile the
+    # config 4 runs go on the card
+    t0 = time.perf_counter()
+    cfg = config4_cfg("comed")
+    fed = get_federated_data(cfg)
+    model = registry.get_model(cfg.data, cfg.image_shape, arch=cfg.arch)
+    norm = common.make_normalizer(fed.mean, fed.std, DEVICE)
+    images = torch.from_numpy(fed.train.images).to(DEVICE)
+    labels = torch.from_numpy(fed.train.labels).to(DEVICE, torch.int64)
+    params = registry.init_params(model, cfg.seed, DEVICE)
+    rng = rounds.RoundRNG(cfg.seed, DEVICE)
+    sampled = rounds.sample_agents(cfg, rng.host).tolist()
+    updates, _ = rounds.make_block_trainer(
+        cfg, model, norm, images, labels, fed.train.sizes)(
+            params, rng, rng.next_round(), sampled, 0, len(sampled))
+    sizes = torch.as_tensor(fed.train.sizes[sampled], device=DEVICE)
+    del images, labels, fed
+    cpu256 = cpu_rules(updates, sizes, cfg, ("comed", "krum"))
+    log(f"[rules] one eager ResNet-9 round's updates at m={len(sampled)} "
+        f"for the checks, and their CPU copy: "
+        f"{time.perf_counter() - t0:.1f} s, data built")
+
+    launches = 0
+    for aggr in ("comed", "krum"):
+        cfg = config4_cfg(aggr)
+        s = drive(rlr_fused, f"rules config4 {aggr}", cfg, k1=False)
+        launches += s["launches"]
+        log(f"[rules] config 4 ({aggr}, ResNet-9, m={cfg.agents_per_round},"
+            f" {cfg.local_ep} x 1 steps of bs {cfg.bs} an agent, "
+            f"--agent_chunk {cfg.agent_chunk}): "
+            f"{1.0 / s['steady_rounds_per_sec']:.2f} s a round (round 2, a "
+            f"replay, with its eval), the run's peak device memory "
+            f"{s['peak_gib']:.2f} GiB, {s['seconds']:.1f} s in all")
+    record["launches_by_path"]["rules config4"] = launches
+
+    times256 = check_rules(f"ResNet-9 m={len(sampled)}", params, updates,
+                           sizes, config4_cfg("comed"), cpu256)
+    record["rules_ms"] = {"m10": times10, "m256": times256}
+    del updates
 
 
 def free_port() -> int:
@@ -1763,7 +2115,8 @@ def main() -> int:
               ("nccl d=1", phase_nccl),
               ("cifar10", lambda: phase_cifar10(rlr_fused, record)),
               ("fedemnist", lambda: phase_fedemnist(rlr_fused, record)),
-              ("k1 shapes", lambda: phase_k1_shapes(rlr_fused, record)))
+              ("k1 shapes", lambda: phase_k1_shapes(rlr_fused, record)),
+              ("rules", lambda: phase_rules(rlr_fused, record, st)))
     for label, fn in phases:
         t0 = time.perf_counter()
         try:

@@ -24,6 +24,16 @@ Slice 2 ports the sharded round and the in-round health lanes:
                 sharded round with the per-rank partial-vote kernel
     health/     the in-round health lanes
 
+Slice 6 ports the remaining server rules and the fault model:
+
+    ops/aggregate.py  comed, trmean, krum, rfa, each with a mask
+    faults/           the fault draw and payload checks (model.py), the
+                      participation mask through every rule (masking.py)
+    health/sentinel.py the quarantine set (--quarantine), ANDed into the
+                      participation mask of the device-resident round
+    health/monitor.py the health policy at each eval boundary
+    utils/guards.py   the boundary's finite check
+
 Hand-written kernel sources live in `csrc/` and are built on first use into
 `build/torch_ext/` at the repository root.
 """

@@ -1,7 +1,9 @@
 """Main-path configuration: the JAX CLI's flag names and defaults, cut to
 the fields the port runs (slice 1's dense round, slice 2's sharded round
 and health lanes, slice 4's batched local training and chained round,
-slice 5's cifar10 and fedemnist data, ResNet-9 and host-sampled round).
+slice 5's cifar10 and fedemnist data, ResNet-9 and host-sampled round,
+slice 6's server rules avg|comed|sign|trmean|krum|rfa, the fault model,
+the quarantine set and the health monitor's policy).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
@@ -25,13 +27,18 @@ import dataclasses
 import math
 from typing import Optional
 
-AGGRS = ("avg", "sign")     # the rules the port has (ops/aggregate.py)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
+    model as fmodel)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
+    monitor as health_monitor)
+
+AGGRS = ("avg", "comed", "sign", "trmean", "krum", "rfa")   # ops/aggregate.py
+RLR_THRESHOLD_MODES = ("abs", "scaled")
 DATASETS = ("fmnist", "cifar10", "fedemnist", "synthetic")
 ARCHS = ("auto", "cnn", "resnet9")
 HOST_SAMPLED = ("auto", "on", "off")
 PATTERNS = ("plus", "square")   # JAX's copyright/apple are not ported
 AGG_LAYOUTS = ("leaf", "bucket")    # JAX's choices; bucket is not ported
-HEALTH_LEVELS = ("on", "off")
 TRAIN_LAYOUTS = ("vmap", "megabatch")
 
 
@@ -43,7 +50,7 @@ class Config:
     agent_frac: float = 1.0         # C, fraction of agents sampled per round
     num_corrupt: int = 0            # first num_corrupt agent ids are malicious
     rounds: int = 200
-    aggr: str = "avg"               # avg | sign
+    aggr: str = "avg"               # avg | comed | sign | trmean | krum | rfa
     local_ep: int = 2
     bs: int = 256
     client_lr: float = 0.1
@@ -71,8 +78,26 @@ class Config:
     process_id: int = -1            # this process's rank; -1 = from env
     mesh: int = 1                   # ranks on the `agents` axis; 0 = all
     agg_layout: str = "leaf"        # leaf (per-leaf all_reduces) | bucket
-    # --- in-round health lanes (JAX health/sentinel.py) ---
+    # --- fault injection and participation (JAX faults/) ---
+    dropout_rate: float = 0.0       # per-round Bernoulli client dropout
+    straggler_rate: float = 0.0     # per-round straggler probability
+    straggler_epochs: int = 1       # local epochs a straggler completes
+    corrupt_rate: float = 0.0       # per-round corrupt-payload probability
+    corrupt_mode: str = "nan"       # nan | huge (1e30 finite constant)
+    payload_norm_cap: float = 0.0   # >0: server rejects updates with L2
+                                    # norm above the cap (validation mask)
+    faults_spare_corrupt: bool = False  # attackers never drop out
+    rlr_threshold_mode: str = "abs"  # abs: the paper's vote count; scaled:
+                                    # threshold * n_eff / m
+    # --- health lanes (JAX health/sentinel.py) and policy (monitor.py) ---
     health: str = "on"              # on | off
+    health_policy: str = "record"   # abort | record (recover: not ported)
+    health_z_threshold: float = 6.0  # loss z-score above which a boundary
+                                    # is an incident
+    health_spike_factor: float = 10.0  # update-norm spike: norm > factor x
+                                    # its EMA baseline
+    quarantine: str = ""            # comma-separated client ids taken out
+                                    # of every vote (participation mask)
     # --- local-training layout and dispatch (JAX fl/rounds.py) ---
     train_layout: str = "vmap"      # vmap | megabatch (fl/client.py)
     agent_chunk: int = 0            # >0: train agents in sequential chunks
@@ -93,6 +118,15 @@ class Config:
         """server_lr is forced to 1.0 unless aggr=='sign' (JAX config.py:510-512,
         reference src/federated.py:23)."""
         return self.server_lr if self.aggr == "sign" else 1.0
+
+    @property
+    def faults_enabled(self) -> bool:
+        """Any nonzero fault rate, or a payload norm cap (which needs the
+        server-side validation and the mask), routes the round through the
+        faults path (JAX config.py:487-493); all off keeps the dense round
+        as it was."""
+        return (self.dropout_rate > 0 or self.straggler_rate > 0
+                or self.corrupt_rate > 0 or self.payload_norm_cap > 0)
 
     @property
     def agents_per_round(self) -> int:
@@ -128,10 +162,37 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="robust-learning-rate federated learning (PyTorch/CUDA)")
     for f in dataclasses.fields(Config):
-        if f.name in ("use_fused", "host_sampled"):
+        if f.name in ("use_fused", "host_sampled", "aggr", "corrupt_mode",
+                      "rlr_threshold_mode", "health_policy",
+                      "faults_spare_corrupt", "quarantine"):
             continue
         p.add_argument(f"--{f.name}", type=type(getattr(d, f.name)),
                        default=getattr(d, f.name))
+    p.add_argument("--aggr", choices=AGGRS, default=d.aggr,
+                   help="aggregation function")
+    p.add_argument("--corrupt_mode", choices=fmodel.CORRUPT_MODES,
+                   default=d.corrupt_mode,
+                   help="corrupt-payload flavor: nan (caught by the finite "
+                        "check) or huge (1e30 finite: needs "
+                        "--payload_norm_cap or a robust rule)")
+    p.add_argument("--faults_spare_corrupt", action="store_true",
+                   help="malicious agents (id < num_corrupt) never drop out")
+    p.add_argument("--rlr_threshold_mode", choices=RLR_THRESHOLD_MODES,
+                   default=d.rlr_threshold_mode,
+                   help="RLR vote threshold under faults: abs = the paper's "
+                        "count; scaled = threshold * n_eff / m")
+    p.add_argument("--health_policy", choices=health_monitor.POLICIES,
+                   default=d.health_policy,
+                   help="numerics-incident policy (health/monitor.py): "
+                        "abort raises, record warns and keeps recording; "
+                        "recover (the ladder) is refused: not ported yet")
+    p.add_argument("--quarantine", type=str, default=d.quarantine,
+                   help="comma-separated client ids excluded from every "
+                        "round's participation mask (device-resident "
+                        "rounds)")
+    p.add_argument("--debug_nan", action="store_true",
+                   help="JAX's checkify float checks in the round (refused: "
+                        "not ported yet)")
     p.add_argument("--host_sampled", choices=HOST_SAMPLED,
                    default=d.host_sampled,
                    help="force host-sampled shard gathering on/off "
@@ -151,11 +212,12 @@ def args_parser(argv: Optional[list] = None) -> Config:
     what the port does not run yet and naming the missing piece."""
     ns = build_parser().parse_args(argv)
     kw = {k: v for k, v in vars(ns).items()
-          if k not in ("no_fused", "remat")}
+          if k not in ("no_fused", "remat", "debug_nan")}
     cfg = Config(use_fused=not ns.no_fused, **kw)
-    if cfg.aggr not in AGGRS:
-        raise ValueError(f"--aggr {cfg.aggr!r} is not ported yet "
-                         f"(the port has {AGGRS})")
+    if ns.debug_nan:
+        raise ValueError("--debug_nan (JAX's checkify float checks in the "
+                         "round) is not ported yet; the health lanes and "
+                         "--health_policy abort judge every boundary")
     if cfg.agg_layout not in AGG_LAYOUTS:
         raise ValueError(f"--agg_layout must be one of {AGG_LAYOUTS}, got "
                          f"{cfg.agg_layout!r}")
@@ -163,9 +225,7 @@ def args_parser(argv: Optional[list] = None) -> Config:
         raise ValueError("--agg_layout bucket (parallel/buckets.py: "
                          "reduce_scatter + all_gather) is not ported yet; "
                          "the port has the leaf layout")
-    if cfg.health not in HEALTH_LEVELS:
-        raise ValueError(f"--health must be one of {HEALTH_LEVELS}, got "
-                         f"{cfg.health!r}")
+    health_monitor.check(cfg)
     if cfg.train_layout not in TRAIN_LAYOUTS:
         raise ValueError(f"--train_layout must be one of {TRAIN_LAYOUTS}, "
                          f"got {cfg.train_layout!r}")
@@ -212,4 +272,13 @@ def print_exp_details(cfg: Config) -> None:
           f"Fused server step: {cfg.use_fused}  Mesh: {cfg.mesh}")
     print(f"    Train layout: {cfg.train_layout}  Agent chunk: "
           f"{cfg.agent_chunk}  Chain: {cfg.chain}")
+    if cfg.faults_enabled:
+        print(f"    Faults: dropout {cfg.dropout_rate}  straggler "
+              f"{cfg.straggler_rate} ({cfg.straggler_epochs} ep)  corrupt "
+              f"{cfg.corrupt_rate} ({cfg.corrupt_mode})  norm cap "
+              f"{cfg.payload_norm_cap}  spare corrupt "
+              f"{cfg.faults_spare_corrupt}  RLR threshold "
+              f"{cfg.rlr_threshold_mode}")
+    print(f"    Health: {cfg.health}  policy {cfg.health_policy}  "
+          f"z {cfg.health_z_threshold}  spike x{cfg.health_spike_factor}")
     print("======================================")

@@ -16,7 +16,12 @@ fl/client.py` (`make_local_train`, `make_local_train_megabatch`) and the
 - per batch, the global-grad-norm clip to 10, the SGD step, then the PGD
   projection onto the L2 ball `clip` when clip > 0;
 - the sample-weighted epoch loss, averaged over epochs;
-- the update (final - initial params) in f32.
+- the update (final - initial params) in f32;
+- the straggler lane (JAX fl/client.py:62-140, faults/model.py): an
+  optional per-agent epoch budget `ep_budget`; the epochs past it zero
+  every batch weight, so their steps are exact no-ops and their epoch
+  loss is 0 / max(0, 1) = 0, which still enters the mean over epochs, as
+  in JAX. Without a budget the trainers run as before.
 
 Randomness is drawn before training, per sampled slot from the slot's own
 generator (`draw_slot`), and passed in: the epoch permutations and the
@@ -88,20 +93,24 @@ def _client_loss(model):
 
 def make_local_train(model, cfg, normalize):
     """The per-agent oracle. Returns local_train(params0, images, labels,
-    size, perms, keep=None) -> (update dict, mean epoch loss, 0-d tensor).
+    size, perms, keep=None, ep_budget=None) -> (update dict, mean epoch
+    loss, 0-d tensor).
 
     images: [n_total, H, W, C] raw pixels with n_total a multiple of cfg.bs;
     labels: [n_total] int64; size: the true shard size (a Python int);
     perms: cfg.local_ep permutations of range(n_total), real samples first;
     keep: the slot's keep-masks from `draw_slot` (one [local_ep, nb, bs, F]
-    tensor per dropout site), or None for no dropout. A batch with no real
-    sample is skipped on the host: the rest of the epoch is padding."""
+    tensor per dropout site), or None for no dropout; ep_budget: the
+    straggler's epoch budget (a Python int), or None for all local_ep. A
+    batch with no real sample is skipped on the host: the rest of the
+    epoch is padding, or the epoch is past the budget."""
     bs = cfg.bs
     loss_fn = _client_loss(model)
 
     def local_train(params0, images, labels, size: int,
                     perms: Sequence[torch.Tensor],
-                    keep: Optional[Tuple[torch.Tensor, ...]] = None):
+                    keep: Optional[Tuple[torch.Tensor, ...]] = None,
+                    ep_budget: Optional[int] = None):
         n_total = images.shape[0]
         if n_total % bs:
             raise ValueError(f"shard length {n_total} is not a multiple of "
@@ -114,10 +123,11 @@ def make_local_train(model, cfg, normalize):
         for e, perm in enumerate(perms):
             loss_sum = torch.zeros((), device=images.device)
             n_seen = 0
+            active = ep_budget is None or e < ep_budget
             for b in range(n_total // bs):
-                n_real = min(bs, size - b * bs)
+                n_real = min(bs, size - b * bs) if active else 0
                 if n_real <= 0:
-                    break       # the rest of the epoch is padding: no-ops
+                    break       # padding, or past the budget: no-ops
                 idx = perm[b * bs:(b + 1) * bs]
                 x = normalize(images[idx])
                 y = labels[idx]
@@ -148,14 +158,15 @@ def make_local_train(model, cfg, normalize):
 def make_local_train_batched(model, cfg, normalize, layout: str = "vmap"):
     """The block trainer, JAX's `vmap(local_train)` (layout 'vmap') or
     `make_local_train_megabatch` (layout 'megabatch'). Returns
-    train(params0, images, labels, agents, sizes, perms, keep=None)
-    -> (updates {leaf: [m, ...]}, losses [m]).
+    train(params0, images, labels, agents, sizes, perms, keep=None,
+    ep_budget=None) -> (updates {leaf: [m, ...]}, losses [m]).
 
     images [K, n_total, H, W, C] and labels [K, n_total] are the whole
     device-resident stacks; agents [m] the block's agent ids and sizes [m]
     their true shard sizes, both on the device; perms [m, local_ep,
     n_total] and keep (one [m, local_ep, nb, bs, F] bool per dropout site,
-    or None) the block's draws stacked per slot. Where JAX takes the
+    or None) the block's draws stacked per slot; ep_budget ([m] int32 on
+    the device, or None) the stragglers' epoch budgets. Where JAX takes the
     gathered [m, n_total] block, this gathers each step's rows straight
     from the K-agent stack by agent id. Every step runs for every agent; a
     step with no real sample for an agent leaves its params and momentum
@@ -169,7 +180,8 @@ def make_local_train_batched(model, cfg, normalize, layout: str = "vmap"):
                                              0 if with_keep else None))
                     for with_keep in (True, False)}
 
-    def train(params0, images, labels, agents, sizes, perms, keep=None):
+    def train(params0, images, labels, agents, sizes, perms, keep=None,
+              ep_budget=None):
         m, n_total = agents.shape[0], images.shape[1]
         if n_total % bs:
             raise ValueError(f"shard length {n_total} is not a multiple of "
@@ -189,6 +201,7 @@ def make_local_train_batched(model, cfg, normalize, layout: str = "vmap"):
         grads_of = grad_clients[keep is not None]
         ep_losses = []
         for e in range(cfg.local_ep):
+            ep_active = None if ep_budget is None else (e < ep_budget)[:, None]
             loss_sum = torch.zeros(m, device=images.device)
             w_sum = torch.zeros(m, device=images.device)
             for b in range(nb):
@@ -205,6 +218,8 @@ def make_local_train_batched(model, cfg, normalize, layout: str = "vmap"):
                 x = x.reshape((m, bs) + x.shape[1:])
                 y = y.reshape(m, bs)
                 w = (b * bs + pos)[None, :] < sizes              # [m, bs]
+                if ep_active is not None:
+                    w = w & ep_active
                 k_eb = (None if keep is None
                         else tuple(site[:, e, b] for site in keep))
                 grads, per_client = grads_of(params, x, y, w, k_eb)

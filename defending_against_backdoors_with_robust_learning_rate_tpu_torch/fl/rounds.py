@@ -26,11 +26,33 @@ whose static input buffers each round refills.
 
 Server step: the fused RLR kernel (ops/rlr_fused.py) wherever
 `_fused_applicable` holds, which is the default; ops/aggregate.py
-otherwise.
+otherwise (a rule other than avg or sign, server noise, or faults).
+
+Faults (`Config.faults_enabled`, faults/): the round's fault draw
+(faults/model.sample_faults: participate, straggler, ep_budget, corrupt,
+each [m]) is drawn on the host from `RoundRNG.faults` and enters the
+device work as an input, as the noise does. The stragglers' epoch budgets
+ride the agents axis of the trainer (`vmap_agents`, `megabatch_agents`,
+`_run_chunked`), and `server_path` runs JAX `_round_core`'s faults branch
+in its order: inject the corrupt payloads, mask = participate &
+payload_valid, the Faults/* scalars, the mask-aware RLR threshold and
+vote, the masked rule and the noise, `guard_empty`, apply, and the
+health lanes over the mask. The masked path has no host sync (krum's
+winner and comed's index stay on the device), so it is captured with
+the rest of the round.
+
+Quarantine (`--quarantine`, health/sentinel.py): the device-resident
+round ANDs `quarantine_mask` of its sampled ids into the participation
+mask after the fault mask (JAX fl/rounds.py:525-531, :325-341), with or
+without faults. The id set is a device tensor made when the round is
+built, and the membership test runs inside the captured round. The
+host-sampled round never sees the ids and refuses it, as JAX's does.
 
 Randomness comes from a `RoundRNG` seeded from --seed, and is drawn on
 the host's order before the device work: the sampled ids from a CPU
-generator; each sampled slot's shuffles and dropout keep-masks
+generator; with faults, the round's fault draw from a CPU generator
+seeded from (seed, round, FAULTS_KEY_TAG); each sampled slot's shuffles
+and dropout keep-masks
 (fl/client.draw_slot) from a generator on the round's device seeded from
 (seed, round, slot) alone, as JAX splits one key per slot
 (parallel/rounds.py:1038), so the dense round and a sharded round on any
@@ -39,7 +61,8 @@ more device generator. torch cannot reproduce jax.random streams, so the
 tests inject the sampled ids and permutations and turn dropout off.
 
 With the health lanes on (--health, the default), the round's info also
-holds the hlth_* lanes of health/sentinel.py.
+holds the hlth_* lanes of health/sentinel.py; with faults, the
+FAULT_INFO_KEYS of faults/model.fault_scalars.
 """
 
 from __future__ import annotations
@@ -49,6 +72,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
+    masking, model as fmodel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.client import (
     draw_slot, make_local_train_batched)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
@@ -60,12 +85,17 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.rlr_fus
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
     compile_cache)
 
+# the fault scalars (faults/model.fault_scalars) a chained block carries
+# beside train_loss and the hlth_* lanes (JAX fl/rounds.py:39)
+FAULT_INFO_KEYS = fmodel.INFO_KEYS
+
 
 class RoundRNG:
     """The run's random streams, seeded from the run's seed: `host` (CPU)
     draws the sampled agent ids, `slot(rnd, i)` gives sampled slot i's
     generator of round rnd (its shuffles, then its dropout masks), `noise`
-    draws the server noise. `next_round` numbers the rounds from 1."""
+    draws the server noise, `faults(rnd)` gives round rnd's fault
+    generator (CPU). `next_round` numbers the rounds from 1."""
 
     def __init__(self, seed: int, device):
         self.seed = seed
@@ -79,17 +109,28 @@ class RoundRNG:
         return self.round
 
     def slot(self, rnd: int, slot: int) -> torch.Generator:
-        state = np.random.SeedSequence([self.seed, rnd, slot]).generate_state(
-            2, np.uint32)
-        seed = (int(state[0]) << 31) ^ int(state[1])    # 63 bits
-        return torch.Generator(device=self.device).manual_seed(seed)
+        return torch.Generator(device=self.device).manual_seed(
+            _seed_of(self.seed, rnd, slot))
+
+    def faults(self, rnd: int) -> torch.Generator:
+        return torch.Generator().manual_seed(
+            _seed_of(self.seed, rnd, fmodel.FAULTS_KEY_TAG))
+
+
+def _seed_of(*words: int) -> int:
+    """A 63-bit generator seed from a tuple of words."""
+    state = np.random.SeedSequence(list(words)).generate_state(2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
 
 
 def _fused_applicable(cfg) -> bool:
     """`_pallas_applicable` reduced to the fields the port has: the fused
     kernel covers weighted FedAvg or signSGD (with or without the RLR vote)
-    with no server noise."""
-    return cfg.use_fused and cfg.aggr in ("avg", "sign") and cfg.noise == 0
+    with no server noise; the faults path and a quarantine set need the
+    mask threaded through the vote, which the kernel does not take."""
+    return (cfg.use_fused and cfg.aggr in ("avg", "sign") and cfg.noise == 0
+            and not cfg.faults_enabled
+            and not health_sentinel.has_quarantine(cfg))
 
 
 def sample_agents(cfg, gen: torch.Generator) -> torch.Tensor:
@@ -97,25 +138,80 @@ def sample_agents(cfg, gen: torch.Generator) -> torch.Tensor:
     return torch.randperm(cfg.num_agents, generator=gen)[:cfg.agents_per_round]
 
 
-def server_step(params, updates, sizes, cfg, noise=None):
+def server_step(params, updates, sizes, cfg, noise=None, mask=None):
     """New params from the stacked [m, ...] updates and their data sizes
     [m]: the fused kernel, or robust_lr + aggregate (+ the pre-drawn server
-    noise, ops/aggregate.draw_noise) + apply."""
+    noise, ops/aggregate.draw_noise) + apply. With a participation `mask`
+    ([m] bool), the mask-aware threshold and vote, the masked rule, and
+    `guard_empty` before the apply."""
     thr = float(cfg.robustLR_threshold)
     slr = cfg.effective_server_lr
     if _fused_applicable(cfg):
         return fused_rlr_avg_apply(params, updates, sizes.to(torch.float32),
                                    thr, slr, mode=cfg.aggr)
-    lr = robust_lr(updates, thr, slr) if thr > 0 else slr
-    return apply_aggregate(params, lr,
-                           aggregate_updates(updates, sizes, cfg, noise))
+    if thr > 0:
+        t = thr if mask is None else masking.rlr_threshold(cfg, mask)
+        lr = robust_lr(updates, t, slr, mask=mask)
+    else:
+        lr = slr
+    agg = aggregate_updates(updates, sizes, cfg, noise, mask=mask)
+    if mask is not None:
+        # every payload dropped or rejected: a zero aggregate, a no-op round
+        agg = masking.guard_empty(agg, mask)
+    return apply_aggregate(params, lr, agg)
 
 
-def _run_chunked(block_fn, params, agents, perms, keep, chunk: int):
-    """block_fn(params, agents, perms, keep) over the whole [m] block, or
-    over sequential [chunk] groups of it with the results concatenated:
-    peak activation memory scales with the agents trained at once, and the
-    results do not depend on the chunking (each agent trains alone)."""
+def server_path(params, updates, sizes, cfg, noise=None, draw=None,
+                qmask=None):
+    """The round after local training, in JAX `_round_core`'s order
+    (fl/rounds.py:296-393): with a fault draw, the corrupt payloads
+    injected, mask = participate & payload_valid and the Faults/* scalars;
+    with a quarantine mask `qmask` ([m] bool, True = not quarantined),
+    mask &= qmask and the effective voters recounted; then `server_step`
+    over the mask, and the health lanes over it. Returns (new params,
+    {fault_* and hlth_* lanes})."""
+    mask, info = None, {}
+    if draw is not None:
+        if cfg.corrupt_rate > 0:
+            updates = fmodel.inject_corrupt(updates, draw.corrupt,
+                                            cfg.corrupt_mode)
+        mask = draw.participate & fmodel.payload_valid(
+            updates, cfg.payload_norm_cap)
+        info.update(fmodel.fault_scalars(draw, mask))
+    if qmask is not None:
+        mask = qmask if mask is None else mask & qmask
+        if draw is not None:
+            info["fault_voters"] = masking.count_f32(mask)
+    new_params = server_step(params, updates, sizes, cfg, noise, mask)
+    if health_sentinel.health_on(cfg):
+        info.update(health_sentinel.sentinel(cfg, updates, new_params,
+                                             mask=mask))
+    return new_params, info
+
+
+def corrupt_slots(cfg, sampled) -> torch.Tensor:
+    """[m] bool on the host: the sampled slot holds a malicious agent (the
+    first num_corrupt ids), for --faults_spare_corrupt."""
+    return torch.as_tensor(np.asarray(sampled) < cfg.num_corrupt)
+
+
+def draw_faults(cfg, rng: RoundRNG, rnd: int, sampled, device):
+    """Round rnd's fault draw for the sampled ids on `device`, or None
+    when cfg has no faults (the dense round as before)."""
+    if not cfg.faults_enabled:
+        return None
+    return fmodel.draw_to(
+        fmodel.sample_faults(cfg, rng.faults(rnd), len(sampled),
+                             corrupt_slots(cfg, sampled)), device)
+
+
+def _run_chunked(block_fn, params, agents, perms, keep, chunk: int,
+                 ep_budget=None):
+    """block_fn(params, agents, perms, keep, ep_budget) over the whole [m]
+    block, or over sequential [chunk] groups of it with the results
+    concatenated: peak activation memory scales with the agents trained at
+    once, and the results do not depend on the chunking (each agent trains
+    alone). `ep_budget` ([m], faults/) rides the agents axis."""
     m = agents.shape[0]
     if 0 < chunk < m and m % chunk != 0:
         raise ValueError(
@@ -123,25 +219,29 @@ def _run_chunked(block_fn, params, agents, perms, keep, chunk: int):
             f"(per-device agent count); pick a divisor or 0 for the full "
             f"block")
     if chunk <= 0 or chunk >= m:
-        return block_fn(params, agents, perms, keep)
+        return block_fn(params, agents, perms, keep, ep_budget)
     parts = [block_fn(params, agents[lo:lo + chunk], perms[lo:lo + chunk],
                       None if keep is None
-                      else tuple(site[lo:lo + chunk] for site in keep))
+                      else tuple(site[lo:lo + chunk] for site in keep),
+                      None if ep_budget is None
+                      else ep_budget[lo:lo + chunk])
              for lo in range(0, m, chunk)]
     updates = {k: torch.cat([u[k] for u, _ in parts]) for k in parts[0][0]}
     return updates, torch.cat([loss for _, loss in parts])
 
 
-def vmap_agents(train, params, agents, perms, keep, chunk: int = 0):
+def vmap_agents(train, params, agents, perms, keep, chunk: int = 0,
+                ep_budget=None):
     """The vmap layout's block (fl/client.make_local_train_batched, layout
     'vmap'), optionally in sequential chunks of `chunk` agents."""
-    return _run_chunked(train, params, agents, perms, keep, chunk)
+    return _run_chunked(train, params, agents, perms, keep, chunk, ep_budget)
 
 
-def megabatch_agents(train, params, agents, perms, keep, chunk: int = 0):
+def megabatch_agents(train, params, agents, perms, keep, chunk: int = 0,
+                     ep_budget=None):
     """The megabatch layout's block (layout 'megabatch'), optionally in
     sequential chunks, each chunk folding its own [chunk*bs] batch."""
-    return _run_chunked(train, params, agents, perms, keep, chunk)
+    return _run_chunked(train, params, agents, perms, keep, chunk, ep_budget)
 
 
 class BlockTrainer:
@@ -207,19 +307,20 @@ class BlockTrainer:
             agents = agents.pin_memory().to(device, non_blocking=True)
         return agents, torch.stack(perm_rows), keep
 
-    def run(self, params, agents, perms, keep, data=None):
+    def run(self, params, agents, perms, keep, data=None, ep_budget=None):
         """Train the block: `agents` index the trainer's stacks, or the
         (images, labels, sizes) of `data` when given (the host round's
-        gathered [m, ...] stacks, indexed by slot)."""
+        gathered [m, ...] stacks, indexed by slot); `ep_budget` ([m]) cuts
+        the stragglers' epochs."""
         images, labels, sizes = data or (self.images, self.labels,
                                          self.sizes_dev)
 
-        def train(params, agents, perms, keep):
+        def train(params, agents, perms, keep, ep_budget):
             return self._train(params, images, labels, agents, sizes[agents],
-                               perms, keep)
+                               perms, keep, ep_budget)
         block = vmap_agents if self.layout == "vmap" else megabatch_agents
         return block(train, params, agents, perms, keep,
-                     self.cfg.agent_chunk)
+                     self.cfg.agent_chunk, ep_budget)
 
     def __call__(self, params, rng: RoundRNG, rnd: int, sampled, lo: int,
                  hi: int, perms: Optional[Sequence] = None,
@@ -235,34 +336,40 @@ def make_block_trainer(cfg, model, normalize, images, labels, sizes_host,
                         **kw)
 
 
-def _device_round(cfg, trainer):
-    """The round's device work: local training of the block, the server
-    step, the loss mean and the health lanes. `data` as in
-    `BlockTrainer.run`."""
-    health = health_sentinel.health_on(cfg)
-
-    def device_round(params, agents, perms, keep, noise, data=None):
-        updates, losses = trainer.run(params, agents, perms, keep, data)
+def _device_round(cfg, trainer, qset=None):
+    """The round's device work: local training of the block (the
+    stragglers' budgets from the fault draw when --straggler_rate > 0),
+    the server path, the loss mean. `draw` is the round's FaultDraw or
+    None, `data` as in `BlockTrainer.run`; `qset` the quarantined ids on
+    the device (health/sentinel.quarantine_set), matched against
+    `agents`, the sampled ids."""
+    def device_round(params, agents, perms, keep, noise, draw=None,
+                     data=None):
+        ep_budget = (draw.ep_budget
+                     if draw is not None and cfg.straggler_rate > 0 else None)
+        updates, losses = trainer.run(params, agents, perms, keep, data,
+                                      ep_budget)
         sizes = (trainer.sizes_dev if data is None else data[2])[agents]
-        new_params = server_step(params, updates, sizes, cfg, noise)
-        info = {"train_loss": torch.mean(losses)}
-        if health:
-            info.update(health_sentinel.sentinel(cfg, updates, new_params))
-        return new_params, info
+        qmask = (None if qset is None
+                 else health_sentinel.quarantine_mask(cfg, agents, qset))
+        new_params, info = server_path(params, updates, sizes, cfg, noise,
+                                       draw, qmask)
+        return new_params, {"train_loss": torch.mean(losses), **info}
     return device_round
 
 
 def make_round_fn(cfg, model, normalize, images, labels, sizes,
                   capture: Optional[bool] = None):
     """Device-resident round fn:
-    round(params, rng, sampled=None, perms=None, dropout=True)
-    -> (params, {"train_loss", "sampled", hlth_* lanes}).
+    round(params, rng, sampled=None, perms=None, dropout=True, faults=None)
+    -> (params, {"train_loss", "sampled", hlth_* and fault_* lanes}).
 
     images [K, max_n, H, W, C] and labels [K, max_n] (int64) are tensors on
     the round's device; sizes is the [K] numpy array of true shard sizes.
     `sampled` ([m] ids) and `perms` (per sampled slot, cfg.local_ep
     permutations) replace the draws from `rng`; dropout=False runs local
-    training without dropout.
+    training without dropout; `faults` (a FaultDraw) replaces the round's
+    fault draw. A `--quarantine` set leaves its clients out of every vote.
 
     `capture` (default: on a CUDA device) runs the round's device work as
     one CUDA graph (utils/compile_cache.RoundGraph): the first round
@@ -273,21 +380,25 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
     device = images.device
     trainer = make_block_trainer(cfg, model, normalize, images, labels,
                                  sizes)
-    device_round = _device_round(cfg, trainer)
+    device_round = _device_round(
+        cfg, trainer, health_sentinel.quarantine_set(cfg, device))
     if capture is None:
         capture = device.type == "cuda"
     step = compile_cache.RoundGraph(device_round) if capture else device_round
 
     def round_fn(params, rng: RoundRNG, sampled=None,
-                 perms: Optional[Sequence] = None, dropout: bool = True):
+                 perms: Optional[Sequence] = None, dropout: bool = True,
+                 faults: Optional[fmodel.FaultDraw] = None):
         rnd = rng.next_round()
         if sampled is None:
             sampled = sample_agents(cfg, rng.host)
         sampled = [int(a) for a in sampled]
         draws = trainer.draw(rng, rnd, sampled, 0, len(sampled), perms,
                              dropout)
-        new_params, info = step(params, *draws,
-                                draw_noise(params, cfg, rng.noise))
+        noise = draw_noise(params, cfg, rng.noise)
+        if faults is None:
+            faults = draw_faults(cfg, rng, rnd, sampled, device)
+        new_params, info = step(params, *draws, noise, faults)
         return new_params, {**info, "sampled": sampled}
 
     round_fn.graph = step if capture else None
@@ -296,23 +407,31 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
 
 def make_host_step(cfg, model, normalize, sizes, n_total: int, device):
     """The host-sampled round's device work (JAX `make_host_step`):
-    step(params, imgs, lbls, slot_sizes, perms, keep, noise)
-    -> (params, {"train_loss", hlth_* lanes}) over the gathered stacks
+    step(params, imgs, lbls, slot_sizes, perms, keep, noise, draw=None)
+    -> (params, {"train_loss", hlth_* and fault_* lanes}) over the
+    gathered stacks
     imgs [m, n_total, H, W, C], lbls [m, n_total] (int64) and slot_sizes
-    [m], slot i training row i with its draws perms[i] and keep. sizes is
+    [m], slot i training row i with its draws perms[i] and keep, and with
+    the round's FaultDraw `draw` (or None without faults). sizes is
     the [K] numpy array of true shard sizes the draws read;
     `step.trainer` draws them (`BlockTrainer.draw`). The refusals of JAX's
-    host step (fl/rounds.py:625-671: churn, traffic, buffered aggregation,
-    quarantine, scheduled or in-program attacks) concern features the port
-    does not have."""
+    host step (fl/rounds.py:625-671): quarantine is refused with JAX's
+    error, as the step never sees the sampled ids; churn, traffic,
+    buffered aggregation and scheduled or in-program attacks concern
+    features the port does not have."""
+    if health_sentinel.has_quarantine(cfg):
+        raise ValueError(
+            "--quarantine is not supported in host-sampled mode (the "
+            "program never sees the sampled client ids); run "
+            "device-resident (--host_sampled off) or cohort-sampled")
     device = torch.device(device)
     trainer = make_block_trainer(cfg, model, normalize, None, None, sizes,
                                  device=device, n_total=n_total)
     slots = torch.arange(cfg.agents_per_round, device=device)
     device_round = _device_round(cfg, trainer)
 
-    def step(params, imgs, lbls, slot_sizes, perms, keep, noise):
-        return device_round(params, slots, perms, keep, noise,
+    def step(params, imgs, lbls, slot_sizes, perms, keep, noise, draw=None):
+        return device_round(params, slots, perms, keep, noise, draw,
                             (imgs, lbls, slot_sizes))
     step.trainer = trainer
     return step
@@ -322,13 +441,15 @@ def make_round_fn_host(cfg, model, normalize, sizes, n_total: int, device,
                        capture: Optional[bool] = None):
     """Host-sampled round fn (JAX `make_round_fn_host`):
     round(params, rng, ids, imgs, lbls, slot_sizes, perms=None,
-    dropout=True) -> (params, {"train_loss", "sampled", hlth_* lanes}).
+    dropout=True, faults=None) -> (params, {"train_loss", "sampled",
+    hlth_* and fault_* lanes}).
 
     The driver samples the ids (train.sample_ids) and gathers their shards
     on the host into the stacks of `make_host_step`, on the round's device.
     Slot i draws from rng.slot(rnd, i) with sizes[ids[i]], as slot i of
-    the device-resident round does, so both rounds give the same params
-    for the same ids. `capture` as in `make_round_fn`: on a CUDA device one
+    the device-resident round does, and draws the same faults for the same
+    ids and round, so both rounds give the same params for the same ids.
+    `capture` as in `make_round_fn`: on a CUDA device one
     CUDA graph whose static inputs (the gathered stacks among them) each
     round refills."""
     device = torch.device(device)
@@ -339,7 +460,8 @@ def make_round_fn_host(cfg, model, normalize, sizes, n_total: int, device,
     step = compile_cache.RoundGraph(host_step) if capture else host_step
 
     def round_fn(params, rng: RoundRNG, ids, imgs, lbls, slot_sizes,
-                 perms: Optional[Sequence] = None, dropout: bool = True):
+                 perms: Optional[Sequence] = None, dropout: bool = True,
+                 faults: Optional[fmodel.FaultDraw] = None):
         rnd = rng.next_round()
         ids = [int(a) for a in ids]
         if len(ids) != m:
@@ -347,8 +469,11 @@ def make_round_fn_host(cfg, model, normalize, sizes, n_total: int, device,
                              f"{len(ids)}")
         _, slot_perms, keep = host_step.trainer.draw(rng, rnd, ids, 0, m,
                                                      perms, dropout)
+        noise = draw_noise(params, cfg, rng.noise)
+        if faults is None:
+            faults = draw_faults(cfg, rng, rnd, ids, device)
         new_params, info = step(params, imgs, lbls, slot_sizes, slot_perms,
-                                keep, draw_noise(params, cfg, rng.noise))
+                                keep, noise, faults)
         return new_params, {**info, "sampled": ids}
 
     round_fn.graph = step if capture else None
@@ -359,16 +484,17 @@ def make_chained(round_fn):
     """chained(params, rng, n) -> (params, info): n rounds of round_fn with
     no host sync between them (on a CUDA device, n graph replays), the
     counterpart of JAX's `lax.scan` over a block of rounds. info["sampled"]
-    lists each round's ids; "train_loss" and the hlth_* lanes are stacked
-    [n, ...], each round's copied out before the next replay overwrites
-    it."""
+    lists each round's ids; "train_loss", the hlth_* lanes and the
+    FAULT_INFO_KEYS are stacked [n, ...], each round's copied out before
+    the next replay overwrites it."""
     def chained(params, rng: RoundRNG, n: int):
         rows, sampled = [], []
         for _ in range(n):
             params, info = round_fn(params, rng)
             sampled.append(info["sampled"])
             rows.append({k: v.clone() for k, v in info.items()
-                         if k == "train_loss" or k.startswith("hlth_")})
+                         if k == "train_loss" or k.startswith("hlth_")
+                         or k in FAULT_INFO_KEYS})
         out = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
         return params, {**out, "sampled": sampled}
     return chained

@@ -181,6 +181,15 @@ def _check_sharded(cfg, group: AgentsGroup) -> int:
     if cfg.noise > 0:
         raise ValueError("server noise on the sharded round is not ported "
                          "yet (it needs one replicated noise draw)")
+    if cfg.faults_enabled:
+        raise ValueError("faults (--dropout_rate, --straggler_rate, "
+                         "--corrupt_rate, --payload_norm_cap) on the sharded "
+                         "round are not ported yet (the participation mask "
+                         "over the agents group)")
+    if health_sentinel.has_quarantine(cfg):
+        raise ValueError("--quarantine on the sharded round is not ported "
+                         "yet (the participation mask over the agents "
+                         "group)")
     return m // d
 
 

@@ -3,12 +3,21 @@
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 train.py` (`run`, `main`, the `RoundEngine` loop and its `_emit_eval_body`
 rows, `dispatch_schedule`); reference src/federated.py:21-95. The loop is
-the JAX one's without its checkpoints, async metrics, faults or service
-hooks: it walks `dispatch_schedule`'s units, one round or a chained block
-of `--chain` rounds (fl/rounds.make_chained: on a card, that many graph
+the JAX one's without its checkpoints, async metrics or service hooks:
+it walks `dispatch_schedule`'s units, one round or a chained block of
+`--chain` rounds (fl/rounds.make_chained: on a card, that many graph
 replays with no host sync between them), and at each `snap` boundary the
 clean and poisoned val sets are evaluated and the reference's scalars
-written to metrics.jsonl, the boundary's one host sync.
+written to metrics.jsonl, the boundary's one host sync. The boundary is
+judged as JAX's `_emit_eval_body` judges it (train.py:1332-1370): the
+health monitor's `assess` over the health lanes and the params' finite
+bit, then `emit_rows` (the Health/* rows), then `enforce` (the policy:
+record warns, abort raises), the reference's rows and a faults run's
+Faults/* rows; the monitor's EMA state is committed last. Faults
+(`--dropout_rate`, `--straggler_rate`, `--corrupt_rate`,
+`--payload_norm_cap`) are drawn inside the round fns (fl/rounds.py), the
+corrupt-slot flags from the sampled ids; a `--quarantine` set is printed
+at the start (JAX train.py:208-211) and masked inside the round.
 
 The run happens on `cfg.device` (default `cuda`). A run on `cuda` with no
 card raises; it never carries on on the CPU.
@@ -54,7 +63,7 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.evaluate
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
     RoundRNG, make_chained, make_round_fn, make_round_fn_host)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
-    sentinel as health_sentinel)
+    monitor as health_monitor, sentinel as health_sentinel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.registry import (
     get_model, init_params, param_count)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
@@ -65,8 +74,10 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.ro
     make_sharded_round_fn)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
     compile_cache)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.guards import (
+    all_finite_device)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
-    MetricsWriter, health_rows, run_name)
+    FAULT_TAGS, MetricsWriter, fault_rows, run_name)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -165,6 +176,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     """Train cfg.rounds rounds; returns the last boundary's summary (on
     every rank of a sharded run: its params and the run's count of
     all_reduces; on the lead: the metrics)."""
+    health_monitor.check(cfg)
     if group is None:
         group = _agents_group(cfg)
     device = group.device if group is not None else resolve_device(
@@ -173,6 +185,10 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     say = print if lead else (lambda *a, **k: None)
     if lead:
         print_exp_details(cfg)
+    if health_sentinel.has_quarantine(cfg):
+        say(f"[health] quarantined clients: "
+            f"{list(health_sentinel.quarantine_ids(cfg))} "
+            f"(excluded via the participation mask)")
     fed = get_federated_data(cfg)
     if fed.synthetic:
         say(f"[data] no {cfg.data} files under {cfg.data_dir!r}: "
@@ -233,6 +249,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     rng = RoundRNG(cfg.seed, device)
     summary: Dict = {}
     cum_poison_acc = 0.0
+    health_ema = None
     with (MetricsWriter(cfg.log_dir, run_name(cfg)) if lead
           else contextlib.nullcontext()) as writer, \
             contextlib.ExitStack() as stack:
@@ -258,18 +275,27 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                 t_steady, r_steady = time.perf_counter(), rnd
             if rnd % cfg.snap or not lead:
                 continue
+            finite = all_finite_device(params)
             val_loss, val_acc, per_class = eval_fn(params, *val)
             poison_loss, poison_acc, _ = eval_fn(params, *pval)
             # the one host sync of a boundary: every scalar comes back here
             vals = {k: float(v) for k, v in (
+                ("finite", finite),
                 ("val_loss", val_loss), ("val_acc", val_acc),
                 ("base_acc", per_class[cfg.base_class]),
                 ("poison_loss", poison_loss), ("poison_acc", poison_acc),
                 ("train_loss", info["train_loss"]),
                 *((k, info[k])
-                  for k in health_sentinel.boundary_keys(cfg)))}
+                  for k in health_sentinel.boundary_keys(cfg)),
+                *((k, info[k]) for k in FAULT_TAGS if k in info))}
             now = time.perf_counter()
             elapsed = now - t_loop
+            # the health policy first, as JAX's _emit_eval_body: its rows,
+            # then record warns or abort raises; its EMA state is committed
+            # last
+            report = health_monitor.assess(cfg, health_ema, vals)
+            health_monitor.emit_rows(writer, report, rnd)
+            health_monitor.enforce(cfg, report, where=f"round {rnd}")
             cum_poison_acc += vals["poison_acc"]
             # scalar names preserved from reference src/federated.py:81-91
             writer.scalar("Validation/Loss", vals["val_loss"], rnd)
@@ -280,13 +306,13 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             writer.scalar("Poison/Cumulative_Poison_Accuracy_Mean",
                           cum_poison_acc / rnd, rnd)
             writer.scalar("Train/Loss", vals["train_loss"], rnd)
+            for tag, value in fault_rows(vals).items():
+                writer.scalar(tag, value, rnd)
             writer.scalar("Throughput/Rounds_Per_Sec", rnd / elapsed, rnd)
             steady = ((rnd - r_steady) / (now - t_steady) if rnd > r_steady
                       else None)
             if steady is not None:
                 writer.scalar("Throughput/Steady_Rounds_Per_Sec", steady, rnd)
-            for tag, value in health_rows(vals).items():
-                writer.scalar(tag, value, rnd)
             writer.flush()
             print(f"| Rnd {rnd}: Val_Loss/Val_Acc: {vals['val_loss']:.3f} / "
                   f"{vals['val_acc']:.3f} |")
@@ -294,6 +320,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                   f"{vals['poison_loss']:.3f} / {vals['poison_acc']:.3f} |")
             summary = {"round": rnd, "rounds_per_sec": rnd / elapsed,
                        "steady_rounds_per_sec": steady, **vals}
+            health_ema = report["new_state"]
     say("Training has finished!")
     if summary:
         steady = summary["steady_rounds_per_sec"]

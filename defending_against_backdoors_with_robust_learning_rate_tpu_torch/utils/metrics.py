@@ -7,9 +7,11 @@ reference's TensorBoard names (src/federated.py:81-91); each row is
 so reruns of one config can append to one file and still be split.
 TensorBoard output is not ported yet.
 
-`HEALTH_TAGS` are the Health/* rows JAX's train.py writes from the in-round
-health lanes (tag names of JAX health/monitor.py:85-87); the loss z-score
-and norm-spike rows wait for the monitor.
+The Health/* rows come from health/monitor.emit_rows (its `TAGS` are the
+one source of their names), all five of JAX's: the three lanes, the loss
+z-score and the norm-spike bit. `FAULT_TAGS` are the Faults/* rows JAX's
+train.py:1362-1370 writes from a faults round's scalars
+(faults/model.fault_scalars), in that order.
 """
 
 from __future__ import annotations
@@ -17,27 +19,21 @@ from __future__ import annotations
 import json
 import os
 import time
-import math
 from typing import Optional
 
-HEALTH_TAGS = {
-    "nonfinite": "Health/Nonfinite_Updates",
-    "params_finite": "Health/Params_Finite",
-    "update_norm": "Health/Update_Norm",
-}
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults.model import (
+    INFO_KEYS as FAULT_INFO_KEYS)
+
+FAULT_TAGS = dict(zip(FAULT_INFO_KEYS, ("Faults/Dropped", "Faults/Straggled",
+                                        "Faults/Effective_Voters")))
 
 
-def health_rows(vals) -> dict:
-    """{tag: value} of the health lanes in a boundary's host values (empty
-    when the lanes are off): the update norm is the root of the lane's
-    summed square, as JAX health/monitor.assess takes it."""
-    if "hlth_nonfinite" not in vals:
+def fault_rows(vals) -> dict:
+    """{tag: value} of the fault scalars in a boundary's host values
+    (empty without faults)."""
+    if "fault_voters" not in vals:
         return {}
-    nsq = vals["hlth_update_normsq"]
-    return {HEALTH_TAGS["nonfinite"]: vals["hlth_nonfinite"],
-            HEALTH_TAGS["params_finite"]: vals["hlth_params_finite"],
-            HEALTH_TAGS["update_norm"]: (math.sqrt(nsq) if nsq >= 0
-                                         else nsq)}
+    return {tag: vals[key] for key, tag in FAULT_TAGS.items()}
 
 
 def run_name(cfg) -> str:

@@ -32,10 +32,9 @@ REFERENCE_TAGS = {
     "Poison/Cumulative_Poison_Accuracy_Mean", "Train/Loss",
     "Throughput/Rounds_Per_Sec"}
 # and, with the health lanes on (the default), the rows JAX's
-# health/monitor.emit_rows writes from them (the monitor's loss z-score and
-# norm-spike rows are not ported yet)
+# health/monitor.emit_rows writes from them
 HEALTH_TAGS = {"Health/Nonfinite_Updates", "Health/Params_Finite",
-               "Health/Update_Norm"}
+               "Health/Update_Norm", "Health/Loss_Z", "Health/Norm_Spike"}
 # and from the second boundary on, the steady rate after the first dispatch
 # (JAX train.py: Throughput/Steady_Rounds_Per_Sec)
 STEADY_TAG = "Throughput/Steady_Rounds_Per_Sec"
@@ -75,12 +74,12 @@ def test_cli_two_rounds_writes_reference_tags(tmp_path, capsys):
     assert all(np.isfinite(r["value"]) for r in rows)
 
     # a run asked onto a card that is not there raises, it never falls
-    # back to the CPU; a rule this slice has not ported is refused
+    # back to the CPU; a policy the port has not ported is refused
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.resolve_device("cuda")
     with pytest.raises(ValueError, match="not ported"):
-        train.args_parser(["--aggr", "comed"])
+        train.args_parser(["--health_policy", "recover"])
     with pytest.raises(ValueError, match="bucket"):
         train.args_parser(["--agg_layout", "bucket"])
 

@@ -77,9 +77,9 @@ def test_server_rules_match_jax():
                 np.testing.assert_allclose(
                     fused[k].numpy(), got[k].numpy(), atol=1e-6, rtol=1e-6,
                     err_msg=f"fused {aggr} thr={thr} {k}")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown aggr"):
         aggregate.aggregate_updates(tu, torch.from_numpy(sizes),
-                                    Config(aggr="comed"))
+                                    Config(aggr="median"))
 
 
 def test_client_optimizer_ops_match_jax():
