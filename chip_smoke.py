@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port (`defending_against_backdoors_with_robust_learning_rate_tpu_torch`,
-never the JAX package) through thirteen phases and exits non-zero if any
-fails:
+never the JAX package) through fifteen phases and exits non-zero if any
+fails (`--phases a,b` runs the build and just those phases, a rehearsal
+that prints no result lines):
 
 1. build: prints the card's name and power limit (nvidia-smi) and builds
    every hand-written kernel (K1 and K2, one build) from the checkout's
@@ -59,15 +60,17 @@ fails:
    round and make the plan's 3 all_reduces a round (the loss, the weight
    total, one packed buffer). Then rounds/s and one profiled rank's idle
    share; round 1 from the seed against the dense round trained in chunks
-   of a rank's block; and one round's updates through the sharded server
-   step against K1 on the whole stack.
+   of a rank's block; one round's updates through the sharded server
+   step against K1 on the whole stack; and one signflip round on each
+   rank (K2 once, the same 3 all_reduces) with K2 held to its plain
+   version on the rank's scaled block.
 9. nccl d=1: one sharded round at d = 1 over NCCL in a process of its
    own, configured by the flags a multi-card launch passes.
 10. cifar10: the paper's CIFAR-10 DBA triple (reference src/runner.sh:
     23-28: 40 agents all sampled, 2 local epochs at bs 256; 4 corrupt
     agents poisoning half their base-class samples, each with its own
     quarter of the plus trigger; RLR threshold 8) through `train.run` with
-    CNN_CIFAR for 3 rounds each, then the attack + RLR run on ResNet-9
+    CNN_CIFAR for 2 rounds each, then the attack + RLR run on ResNet-9
     for 2 rounds at --agent_chunk 1, on synthetic data at CIFAR-10's scale
     (50,000 / 10,000 at 32x32x3). Each run's counts are set to 0 just
     before it and read just after: K1 once a round, every round after the
@@ -75,7 +78,7 @@ fails:
     its plain version on one round's real updates of each model at m = 40.
 11. fedemnist: the Fed-EMNIST triple (src/runner.sh:34-38: 3,383 users,
     1% a round, m = 33, 10 local epochs at bs 64, 338 corrupt, threshold
-    8) on the synthetic per-user shards, 6 rounds each, device-resident
+    8) on the synthetic per-user shards, 3 rounds each, device-resident
     (what --host_sampled auto picks for 679 MB of stacks) and then
     host-sampled with --host_prefetch 2, counted as above; the host round
     against the device-resident round on the same ids and slot draws,
@@ -86,14 +89,14 @@ fails:
     CUDA events and as device time beside its byte bound and the plain
     version's time.
 13. rules: the robust server rules and the fault model. The FMNIST attack
-    + RLR run (threshold 4) for 4 rounds under each of comed, trmean, krum
+    + RLR run (threshold 4) for 2 rounds under each of comed, trmean, krum
     and rfa, and under avg and comed with the fault regime of
     scripts/sweep_faults.py (dropout 0.3, scaled threshold, attackers
     spared, stragglers 0.2 at 1 epoch, NaN payloads 0.1), comed also with
-    --chain 2, and under comed with --quarantine 0,3 (the corrupt agent 0
-    and one honest agent out of every vote); the Fed-EMNIST attack + RLR
-    run host-sampled under comed
-    with the fault regime (6 rounds); then
+    --chain 2 (4 rounds), and under comed with --quarantine 0,3 (the
+    corrupt agent 0 and one honest agent out of every vote); the
+    Fed-EMNIST attack + RLR run host-sampled under comed with the fault
+    regime (3 rounds); then
     BASELINE.json config 4 (CIFAR-10 ResNet-9, K = 256 agents all sampled,
     2 local epochs at bs 256, config 3's attack, RLR threshold 8,
     --agent_chunk 1) for 2 rounds under comed and under krum; each through
@@ -110,12 +113,34 @@ fails:
     1e-5 relative L2); each rule's server step between CUDA events, and
     comed's sort alone; config 4's seconds a round and its peak device
     memory.
+14. attack: the adversary surface, each run through `train.run` with its
+    counts read as above. The FMNIST attack + RLR run (threshold 4,
+    --agent_chunk 1, the eager warm-up and three replays) under --attack
+    boost --attack_boost 8, under --attack signflip --poison_frac 0 and
+    under the one-shot boost x8 of round 2: K1 once a round; each
+    replayed round against the eager round from the same params and
+    draws (cuDNN deterministic, bit for bit); the one-shot rounds 1 and 3
+    equal to the static round on the same draws, round 2 not; K1 against
+    its plain version on each run's scaled stack, timed beside its bound.
+    CIFAR-10 --attack dba on CNN_CIFAR (m = 40, 2 rounds, K1 once a round;
+    the corrupt agents' poisoned rows carry their round-robin shards of
+    the plus), Fed-EMNIST host-sampled under signflip (m = 33, 2 rounds),
+    K1 on each one's scaled stack. FMNIST signflip with --telemetry full
+    (2 rounds): K1 never, every Defense/* row written and finite.
+15. acceptance: JAX's acceptance pair (tests/test_attack.py:216-231,
+    synthetic, 8 agents, 2 corrupt, boost x8, 10 rounds, seed 1) through
+    `train.run` with cuDNN deterministic: through plain FedAvg poison
+    accuracy must reach >= 0.8 at the round-5 boundary, and under RLR 4
+    stay <= 0.1 at round 10; FedAvg's round-10 value is printed beside
+    JAX's bound of >= 0.8 there, which the JAX package itself does not
+    reach at this seed.
 
 The last two lines of standard output are one JSON object per kernel
 (`{"kernels": [...]}`; K1's `launches` counts every main-path run of
-phases 5, 10, 11 and 13, by path in `launches_by_path` (phase 13's paths
-at 0: their server step is the plain one), and `shapes` holds
-phase 12's timings) and `{"ok": true, "device": {...}}`. Without a CUDA
+phases 5, 10, 11, 13, 14 and 15, by path in `launches_by_path` (phase 13's
+paths at 0: their server step is the plain one), `shapes` holds phase
+12's timings and `attack_stacks` phase 14's; K2's counts the sharded
+run's and the signflip round's) and `{"ok": true, "device": {...}}`. Without a CUDA
 device it exits with 1 before printing any result.
 """
 
@@ -132,6 +157,7 @@ import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 
 PKG = "defending_against_backdoors_with_robust_learning_rate_tpu_torch"
@@ -966,14 +992,14 @@ def phase_profile(st) -> None:
 # the paper's CIFAR-10 DBA and Fed-EMNIST triples (reference
 # src/runner.sh:23-28 and :34-38) at full width, rounds cut
 
-CIFAR_ROUNDS = 3
+CIFAR_ROUNDS = 2
 RESNET_ROUNDS = 2
 # ResNet-9 trains one agent at a time inside the graph: PR 7 measured the
 # ungrouped convolutions of --agent_chunk 1 at twice the speed of the
 # grouped ones, and one agent's activations at bs 256 (about 1.2 GB) keep
 # the peak far below the card's 80 GB
 RESNET_CHUNK = 1
-FED_ROUNDS = 6
+FED_ROUNDS = 3
 FED_SNAP = 3
 FED_TIMED = 10              # rounds timed without eval per mode
 
@@ -1402,7 +1428,9 @@ def phase_k1_shapes(rlr_fused, record) -> None:
 
 RULES = ("comed", "trmean", "krum", "rfa")
 ALL_RULES = ("avg", "sign") + RULES
-RULES_ROUNDS = 4
+# two rounds: the first eager, the second a replay (cut from 4 to keep the
+# whole script inside its time)
+RULES_ROUNDS = 2
 CONFIG4_ROUNDS = 2
 FAULTS = dict(dropout_rate=0.3, rlr_threshold_mode="scaled",
               faults_spare_corrupt=True, straggler_rate=0.2,
@@ -1431,12 +1459,14 @@ def rules_fmnist_cfgs():
     out = {aggr: base.replace(aggr=aggr) for aggr in RULES}
     out.update({f"{aggr}+faults": base.replace(aggr=aggr, **FAULTS)
                 for aggr in ("avg", "comed")})
-    out["comed+faults chain 2"] = out["comed+faults"].replace(chain=2)
+    # four rounds: two chained dispatches, so a steady rate exists
+    out["comed+faults chain 2"] = out["comed+faults"].replace(
+        chain=2, rounds=4)
     out["comed quarantine 0,3"] = base.replace(aggr="comed",
                                                quarantine="0,3")
     out["fedemnist host comed+faults"] = fedemnist_triple()[
         "attack_rlr8"].replace(aggr="comed", host_sampled="on",
-                               host_prefetch=2, **FAULTS)
+                               host_prefetch=2, rounds=FED_SNAP, **FAULTS)
     return {k: c.replace(log_dir=os.path.join(
         RULES_DIR, k.replace(" ", "_").replace(",", "_")))
         for k, c in out.items()}
@@ -1716,6 +1746,398 @@ def phase_rules(rlr_fused, record, st) -> None:
     del updates
 
 
+# --- phase 14: the adversary surface -----------------------------------
+# the attack registry's update strategies (boost, signflip) and its round
+# schedule on the dense, host and (phase sharded) sharded rounds, DBA on
+# CIFAR-10 and the defense telemetry; phase 15, JAX's acceptance pair
+# (tests/test_attack.py:31-39, :216-231)
+
+ATTACK_ROUNDS = 4           # the eager warm-up and three replays
+ATTACK_DIR = "build/chip_smoke/logs_attack"
+
+
+def attack_fmnist_cfgs():
+    """The FMNIST attack + RLR run (threshold 4, --agent_chunk 1) under
+    boost x8, under the clean anti-vote (signflip, poison_frac 0) and
+    under the one-shot boost x8 of round 2 (JAX's `boost_oneshot`
+    scenario, scripts/sweep_scenarios.py:92-94; boost 1 would leave
+    round 2 unchanged)."""
+    base = triple()["attack_rlr4"].replace(
+        rounds=ATTACK_ROUNDS, snap=ATTACK_ROUNDS, agent_chunk=1,
+        log_dir=ATTACK_DIR)
+    return {"boost8": base.replace(attack="boost", attack_boost=8.0),
+            "signflip": base.replace(attack="signflip", poison_frac=0.0),
+            "boost8 one-shot": base.replace(attack="boost",
+                                            attack_boost=8.0,
+                                            attack_start=2, attack_stop=3)}
+
+
+def acceptance_cfg(thr):
+    """JAX's acceptance pair (tests/test_attack.py:31-39, :216-231):
+    synthetic data, 8 agents, 2 corrupt, poison_frac 1.0, boost x8, 10
+    rounds, seed 1."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
+        Config)
+    return Config(data="synthetic", num_agents=8, bs=16, local_ep=2,
+                  synth_train_size=512, synth_val_size=128, eval_bs=128,
+                  rounds=10, snap=5, num_corrupt=2, poison_frac=1.0,
+                  robustLR_threshold=thr, seed=1, attack="boost",
+                  attack_boost=8.0, data_dir="/nonexistent_use_synthetic",
+                  log_dir=ATTACK_DIR, device=DEVICE)
+
+
+def attack_rounds(cfg, st, n, capture):
+    """n rounds of cfg's round fn on the data of `st` from its params and
+    RoundRNG(seed + 11): per round the params, the info tensors (clones)
+    and the sampled ids; and the graph replays it made."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+        compile_cache)
+    fn = rounds.make_round_fn(cfg, st["model"], st["norm"], st["images"],
+                              st["labels"], st["fed"].train.sizes,
+                              capture=capture)
+    rng = rounds.RoundRNG(cfg.seed + 11, DEVICE)
+    replays = compile_cache.GRAPH_REPLAYS["round"]
+    p, out = st["params"], []
+    for _ in range(n):
+        p, info = fn(p, rng)
+        out.append(({k: v.clone() for k, v in p.items()},
+                    {k: v.clone() for k, v in info.items()
+                     if isinstance(v, torch.Tensor)}, info["sampled"]))
+    return out, compile_cache.GRAPH_REPLAYS["round"] - replays
+
+
+def eager_rounds(cfg, st, captured, rnds):
+    """Round r of cfg's round fn, eagerly, for each r in rnds: from the
+    params the captured run held before round r (st's params before round
+    1), on its sampled ids and RoundRNG(seed + 11)'s draws of round r.
+    Returns (params, info tensors, sampled) per round, as attack_rounds."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    fn = rounds.make_round_fn(cfg, st["model"], st["norm"], st["images"],
+                              st["labels"], st["fed"].train.sizes,
+                              capture=False)
+    out = []
+    for r in rnds:
+        rng = rounds.RoundRNG(cfg.seed + 11, DEVICE)
+        rng.round = r - 1
+        p_prev = st["params"] if r == 1 else captured[r - 2][0]
+        p, info = fn(p_prev, rng, sampled=captured[r - 1][2])
+        out.append((p, {k: v.clone() for k, v in info.items()
+                        if isinstance(v, torch.Tensor)}, info["sampled"]))
+    return out
+
+
+def scaled_stack(cfg, model, norm, images, labels, sizes_host, params, rnd,
+                 sampled, seed):
+    """Round rnd's updates for the sampled ids from RoundRNG(seed)'s slot
+    draws with the rows the attack hits scaled (attack/registry.
+    apply_update_attack on the round's attacked_slots), those slots, and
+    the sizes, on the card."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+        registry as attack_registry)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    rng = rounds.RoundRNG(seed, DEVICE)
+    # trained as one block (--agent_chunk 1's eager steps are 3x slower);
+    # the same draws, params and attacked slots
+    updates, _ = rounds.make_block_trainer(
+        cfg.replace(agent_chunk=0), model, norm, images, labels,
+        sizes_host)(params, rng, rnd, sampled, 0, len(sampled))
+    hits = attack_registry.attacked_slots(cfg, sampled, rnd)
+    return (attack_registry.apply_update_attack(cfg, updates,
+                                                hits.to(DEVICE)), hits,
+            torch.as_tensor(sizes_host[sampled], device=DEVICE))
+
+
+def k1_on_scaled(rlr_fused, label, params, updates, sizes, thr):
+    """K1 on a scaled stack: against its plain version (k1_against_plain),
+    then timed between CUDA events (L2 flushed before each) beside its
+    byte bound and the plain version's time."""
+    name = torch.cuda.get_device_name(0)
+    rate = hbm_rate(name)
+    err = k1_against_plain(rlr_fused, params, updates, sizes, thr)
+    m = sizes.shape[0]
+    wn = sizes.to(torch.float32) / sizes.to(torch.float32).sum()
+    scratch = torch.empty(64 * 2 ** 20, device=DEVICE)     # 256 MB > L2
+
+    def flush():
+        scratch.zero_()
+
+    def kernel_step():
+        return rlr_fused.fused_rlr_avg_apply(params, updates, sizes, thr, 1.0)
+
+    def plain_step():
+        return {k: rlr_fused.rlr_fused_reference(
+            updates[k].reshape(m, -1), wn, p.reshape(-1), thr, 1.0)
+            for k, p in params.items()}
+    n = sum(p.numel() for p in params.values())
+    nbytes, nops = 4 * (m * n + m + 2 * n), 4 * m * n
+    # between CUDA events only: late in this long process torch.profiler
+    # has returned no kernel events (phases kernels and k1 shapes give
+    # K1's device time at these shapes)
+    k_ms = time_ms(kernel_step, flush, reps=20)
+    p_ms = time_ms(plain_step, flush, reps=10)
+    bound_ms = max(nbytes / rate, nops / FP32_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / rate >= nops / FP32_FLOPS else "operations"
+    log(f"[attack] K1 on the {label} scaled stack (m={m}, {len(params)} "
+        f"leaves, n={n:,}; {name}): max |kernel - plain| {err:.3e} (sign "
+        f"exact, avg within {TOL}); between CUDA events {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return err, {"stack": label, "m": m, "n": n, "ms": k_ms,
+                 "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_replay(label, eager, captured, first=2):
+    """The captured rounds (from round `first` on: replays) against the
+    eager rounds, bit for bit."""
+    for r, ((pe, ie, se), (pc, ic, sc)) in enumerate(zip(eager, captured,
+                                                         strict=True),
+                                                     start=first):
+        same = (se == sc and all(torch.equal(pc[k], v)
+                                 for k, v in pe.items())
+                and all(torch.equal(ic[k], v) for k, v in ie.items()))
+        if not same:
+            diff = max(float((pc[k] - v).abs().max()) for k, v in pe.items())
+            raise AssertionError(f"{label}: replayed round {r} left the "
+                                 f"eager round (max |diff| {diff:.1e})")
+
+
+def defense_rows_of(cfg):
+    """The Defense/* rows of the run's last start in its metrics.jsonl."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
+        run_name)
+    with open(os.path.join(cfg.log_dir, run_name(cfg),
+                           "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    start = max(i for i, r in enumerate(rows) if r["tag"] == "_run/start")
+    return [r for r in rows[start:] if r["tag"].startswith("Defense/")]
+
+
+def phase_attack(rlr_fused, record, st) -> None:
+    """The adversary surface through train.run, each run's counts set to 0
+    just before and read just after: FMNIST under boost x8, signflip and
+    the one-shot boost (K1 once a round, three replays each), CIFAR-10
+    DBA on CNN_CIFAR (m = 40), Fed-EMNIST host-sampled under signflip
+    (m = 33), FMNIST signflip with full telemetry (K1 0 launches, every
+    Defense/* row finite). Then each FMNIST round's replay against the
+    eager round bit for bit (cuDNN deterministic), the one-shot rounds
+    against the static round on the same draws, K1 on the scaled FMNIST,
+    CIFAR-10 and Fed-EMNIST stacks against its plain version and its
+    bound, and the DBA stamps of the corrupt agents."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
+        train)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+        dba, patterns)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
+        get_federated_data)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        common, rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
+        telemetry)
+
+    st = st or round_setup()
+    t_phase = time.perf_counter()
+    launches = 0
+    fmnist = attack_fmnist_cfgs()
+    for label, cfg in fmnist.items():
+        launches += drive(rlr_fused, f"attack {label}", cfg)["launches"]
+    cfg_dba = cifar10_triple()["attack_rlr8"].replace(
+        attack="dba", rounds=2, snap=2, log_dir=ATTACK_DIR)
+    launches += drive(rlr_fused, "attack cifar10 dba", cfg_dba)["launches"]
+    cfg_host = fedemnist_triple()["attack_rlr8"].replace(
+        attack="signflip", host_sampled="on", rounds=2, snap=2,
+        log_dir=ATTACK_DIR)
+    launches += drive(rlr_fused, "attack fedemnist host signflip",
+                      cfg_host)["launches"]
+    cfg_tel = fmnist["signflip"].replace(rounds=2, snap=1, telemetry="full")
+    drive(rlr_fused, "attack telemetry full", cfg_tel, k1=False)
+    rows = defense_rows_of(cfg_tel)
+    want = [(step, tag) for step in (1, 2)
+            for tag in sorted(telemetry.tags(cfg_tel))]
+    if (sorted((r["step"], r["tag"]) for r in rows) != want
+            or not all(math.isfinite(r["value"]) for r in rows)):
+        raise AssertionError(f"the Defense/* rows: {rows}")
+    last = {r["tag"]: r["value"] for r in rows if r["step"] == 2}
+    log(f"[attack] telemetry full, signflip: {len(rows)} Defense/* rows "
+        f"over rounds 1-2, all finite; round 2: flip fraction "
+        f"{last['Defense/LR_Flip_Fraction']:.4f}, margin mean "
+        f"{last['Defense/Vote_Margin_Mean']:.4f}, cosine honest / corrupt "
+        f"{last['Defense/Cosine_Honest_To_Agg']:.4f} / "
+        f"{last['Defense/Cosine_Corrupt_To_Agg']:.4f}, update norm p50 / "
+        f"max {last['Defense/Update_Norm_P50']:.4f} / "
+        f"{last['Defense/Update_Norm_Max']:.4f}")
+
+    log(f"[attack] the runs through train.run: "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # each replayed round against the eager round from the same params and
+    # draws, and the one-shot schedule against the static round
+    strict = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    _strict_numerics()
+    timings, worst = [], 0.0
+    try:
+        for label, cfg in fmnist.items():
+            n = 3 if cfg.attack_stop else 2
+            captured, made = attack_rounds(cfg, st, n, capture=True)
+            if made != n - 1:
+                raise AssertionError(f"{label}: {made} replays")
+            eager = eager_rounds(cfg, st, captured, range(2, n + 1))
+            check_replay(f"attack {label}", eager, captured[1:])
+            line = (f"[attack] {label}: {n - 1} replayed round(s) equal the "
+                    f"eager rounds from the same params and draws bit for "
+                    f"bit (cuDNN deterministic)")
+            if cfg.attack_stop:
+                static = eager_rounds(
+                    cfg.replace(attack="static", attack_start=0,
+                                attack_stop=0, attack_boost=1.0),
+                    st, captured, range(1, n + 1))
+                same = [all(torch.equal(p[k], v) for k, v in c[0].items())
+                        for (p, _, _), c in zip(static, captured)]
+                if same != [True, False, True]:
+                    raise AssertionError(f"{label}: rounds equal to the "
+                                         f"static round: {same}")
+                line += ("; rounds 1 and 3 equal the static round on the "
+                         "same draws, round 2 (the attack's) does not")
+            log(line)
+            # K1 on the round's scaled stack (round 2 for the one-shot)
+            rnd = 2 if cfg.attack_stop else 1
+            sampled = captured[rnd - 1][2]
+            p_in = st["params"] if rnd == 1 else captured[rnd - 2][0]
+            ups, hits, sizes = scaled_stack(
+                cfg, st["model"], st["norm"], st["images"], st["labels"],
+                st["fed"].train.sizes, p_in, rnd, sampled, cfg.seed + 11)
+            if not bool(hits.any()):
+                raise AssertionError(f"{label}: round {rnd} not attacked")
+            err, t = k1_on_scaled(rlr_fused, f"FMNIST {label} round {rnd}",
+                                  p_in, ups, sizes, 4.0)
+            worst = max(worst, err)
+            timings.append(t)
+            del eager, captured, ups
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = strict
+    log(f"[attack] the replay, schedule and FMNIST K1 checks: "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # CIFAR-10 DBA: the corrupt agents' stamps, and K1 on a scaled stack
+    fed = get_federated_data(cfg_dba)
+    full = patterns.build_stamp("cifar10", "plus", agent_idx=-1)
+    masks = []
+    for a in range(cfg_dba.num_corrupt):
+        shard = dba.split_stamp(full, a, cfg_dba.num_corrupt).mask
+        rows = fed.train.poison_mask[a]
+        px = fed.train.images[a][rows]          # [n, 32, 32, 3] uint8
+        if not rows.any() or (px[:, shard] != 0).any():
+            raise AssertionError(f"agent {a}: its DBA shard is not stamped")
+        outside = full.mask & ~shard
+        if not (px[:, outside] != 0).any():
+            raise AssertionError(f"agent {a}: the full plus is stamped")
+        masks.append(shard)
+    if (np.logical_or.reduce(masks) != full.mask).any() or sum(
+            int(s.sum()) for s in masks) != int(full.mask.sum()):
+        raise AssertionError("the DBA shards do not partition the plus")
+    log(f"[attack] cifar10 dba: the {cfg_dba.num_corrupt} corrupt agents' "
+        f"poisoned rows carry their round-robin shards of the "
+        f"{int(full.mask.sum())}-pixel plus "
+        f"({', '.join(str(int(s.sum())) for s in masks)} pixels), which "
+        f"partition it; the poisoned val set the full plus")
+    model = registry.get_model(cfg_dba.data, cfg_dba.image_shape)
+    norm = common.make_normalizer(fed.mean, fed.std, DEVICE)
+    images = torch.from_numpy(fed.train.images).to(DEVICE)
+    labels = torch.from_numpy(fed.train.labels).to(DEVICE, torch.int64)
+    params = registry.init_params(model, cfg_dba.seed, DEVICE)
+    # the dba run's stack is unscaled; boost x8 scales it like FMNIST's
+    c = cfg_dba.replace(attack="boost", attack_boost=8.0)
+    sampled = rounds.sample_agents(c, rounds.RoundRNG(c.seed, DEVICE).host)
+    ups, _, sizes = scaled_stack(c, model, norm, images, labels,
+                                 fed.train.sizes, params, 1,
+                                 sampled.tolist(), c.seed)
+    err, t = k1_on_scaled(rlr_fused, "CNN_CIFAR dba + boost8", params, ups,
+                          sizes, 8.0)
+    worst, timings = max(worst, err), timings + [t]
+    del fed, images, labels, ups
+    log(f"[attack] the CIFAR-10 checks: {time.perf_counter() - t_phase:.1f} "
+        f"s into the phase")
+
+    # Fed-EMNIST: the host round's signflip stack (its sampled ids)
+    fed = get_federated_data(cfg_host)
+    model = registry.get_model(cfg_host.data, cfg_host.image_shape)
+    norm = common.make_normalizer(fed.mean, fed.std, DEVICE,
+                                  fed.raw_is_normalized)
+    images = torch.from_numpy(fed.train.images).to(DEVICE)
+    labels = torch.from_numpy(fed.train.labels).to(DEVICE, torch.int64)
+    params = registry.init_params(model, cfg_host.seed, DEVICE)
+    ids = train.sample_ids(cfg_host, 1).tolist()
+    ups, hits, sizes = scaled_stack(cfg_host, model, norm, images, labels,
+                                    fed.train.sizes, params, 1, ids,
+                                    cfg_host.seed)
+    log(f"[attack] fedemnist host round 1: {int(hits.sum())} of "
+        f"{len(ids)} sampled users corrupt (rows scaled by -1)")
+    err, t = k1_on_scaled(rlr_fused, "Fed-EMNIST host signflip", params, ups,
+                          sizes, 8.0)
+    worst, timings = max(worst, err), timings + [t]
+    del fed, images, labels, ups
+    record["max_abs_err"] = max(record.get("max_abs_err", 0.0), worst)
+    record["attack_stacks"] = timings
+    log(f"[attack] the Fed-EMNIST checks: {time.perf_counter() - t_phase:.1f}"
+        f" s into the phase")
+
+    record["launches_by_path"]["attack"] = launches
+    log(f"[attack] phase time {time.perf_counter() - t_phase:.1f} s")
+
+
+def poison_at(cfg, rnd: int) -> float:
+    """The Poison/Poison_Accuracy row of round rnd in the metrics.jsonl of
+    cfg's last run (the rows after its last _run/start)."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
+        run_name)
+    with open(os.path.join(cfg.log_dir, run_name(cfg), "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    start = max(i for i, r in enumerate(rows) if r["tag"] == "_run/start")
+    return next(r["value"] for r in rows[start:]
+                if r["tag"] == "Poison/Poison_Accuracy" and r["step"] == rnd)
+
+
+def phase_acceptance(rlr_fused, record) -> None:
+    """JAX's acceptance pair with its exact config (tests/test_attack.py:
+    216-231) through train.run, under cuDNN's deterministic kernels (TF32
+    off). Held: plain FedAvg lets the boosted backdoor in, poison accuracy
+    >= 0.8 at the round-5 boundary (an attack that did nothing stays near
+    0 there), and RLR 4 keeps it out, <= 0.1 at round 10 (JAX's bound).
+    JAX's other bound, >= 0.8 through plain FedAvg at round 10, is printed
+    and not held: the undefended model degenerates between rounds 5 and
+    10, and the outcome at round 10 turns on the run's random draws in
+    both packages (PERF.md §6-§7, ROADMAP queue 3 item 3)."""
+    strict = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    _strict_numerics()
+    try:
+        accs, launches = {}, 0
+        for thr in (0, 4):
+            cfg = acceptance_cfg(thr)
+            s = drive(rlr_fused, f"acceptance thr {thr}", cfg)
+            accs[thr] = (poison_at(cfg, 5), s["poison_acc"])
+            launches += s["launches"]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = strict
+    record["launches_by_path"]["acceptance"] = launches
+    log(f"[acceptance] JAX's acceptance pair (tests/test_attack.py:216-231;"
+        f" synthetic, 8 agents, 2 corrupt, boost x8, 10 rounds, seed 1; "
+        f"cuDNN deterministic): poison accuracy at rounds 5 / 10 through "
+        f"plain FedAvg {accs[0][0]:.4f} (bound >= 0.8) / {accs[0][1]:.4f} "
+        f"(JAX's bound >= 0.8, not held), under RLR 4 {accs[4][0]:.4f} / "
+        f"{accs[4][1]:.4f} (bound <= 0.1)")
+    if not (accs[0][0] >= 0.8 and accs[4][1] <= 0.1):
+        raise AssertionError(f"the acceptance pair (rounds 5, 10): {accs}")
+
+
 def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -1848,12 +2270,67 @@ def sharded_rank(rank: int, world: int, port: int) -> None:
         cpu = lambda t: {k: v.cpu() for k, v in t.items()}  # noqa: E731
         out.update(sampled=sampled, updates=cpu(updates),
                    train_loss1=float(info1["train_loss"]))
+
+        # one signflip round (the adversary surface): this rank scales its
+        # block of the round's rows, and K2 reads the scaled block; its
+        # launches and all_reduces read around the round
+        out["attack"] = signflip_round(rlr_fused, cfg, st, group, updates,
+                                       sizes, sampled, lo, hi)
         if rank == 0:
             out.update(params1=cpu(p1),
                        steps={k: cpu(v) for k, v in steps.items()})
         torch.save(out, f"{SHARDED_DIR}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def signflip_round(rlr_fused, cfg, st, group, updates, sizes, sampled, lo,
+                   hi):
+    """One sharded round 1 from the seed under --attack signflip on this
+    rank: its K2 launches, all_reduces and loss; and K2 on this rank's
+    scaled block of the same round's updates against its plain version."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+        registry as attack_registry)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
+        rounds as prounds)
+
+    c = cfg.replace(attack="signflip")
+    round_fn = prounds.make_sharded_round_fn(
+        c, st["model"], st["norm"], group, st["images"], st["labels"],
+        st["fed"].train.sizes)
+    for k in rlr_fused.LAUNCHES:
+        rlr_fused.LAUNCHES[k] = 0
+    calls = group.calls
+    new, info = round_fn(st["params0"], rounds.RoundRNG(cfg.seed,
+                                                        group.device))
+    torch.cuda.synchronize()
+    res = {"k2": rlr_fused.LAUNCHES["rlr_partial"],
+           "calls": group.calls - calls,
+           "k1": rlr_fused.LAUNCHES["rlr_fused"],
+           "train_loss": float(info["train_loss"]),
+           "finite": all(bool(torch.isfinite(v).all())
+                         for v in new.values())}
+    hits = attack_registry.attacked_slots(c, sampled, 1)[lo:hi]
+    block = attack_registry.apply_update_attack(c, updates,
+                                                hits.to(group.device))
+    us = [block[k].reshape(hi - lo, -1) for k in st["params0"]]
+    w = sizes.to(torch.float32)
+    wn = w / (w.sum() * group.size)
+    offsets, total = rlr_fused.packed_offsets(tuple(u.shape[1] for u in us))
+    buf = torch.empty(2 * total, device=group.device)
+    rlr_fused.rlr_partial_leaves(us, wn, buf, offsets, total, 0)
+    err = 0.0
+    for u, o in zip(us, offsets):
+        n = u.shape[1]
+        want_s, want_w = rlr_fused.rlr_partial_reference(u, wn)
+        torch.testing.assert_close(buf[total + o:total + o + n], want_s,
+                                   atol=0, rtol=0)
+        torch.testing.assert_close(buf[o:o + n], want_w, atol=TOL, rtol=TOL)
+        err = max(err, float((buf[o:o + n] - want_w).abs().max()))
+    res.update(k2_err=err, negated=int(hits.sum()))
+    return res
 
 
 def profile_round(fn):
@@ -1909,6 +2386,7 @@ def phase_sharded(rlr_fused, record, st) -> None:
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
         multihost)
 
+    st = st or round_setup()
     os.makedirs(SHARDED_DIR, exist_ok=True)
     for f in os.listdir(SHARDED_DIR):
         os.remove(os.path.join(SHARDED_DIR, f))
@@ -1965,7 +2443,8 @@ def phase_sharded(rlr_fused, record, st) -> None:
         f"(this rank's own kernels; four more ranks share the card)")
     for name, (n, t) in prof["top"]:
         log(f"[sharded]   {t:9.2f} ms {n:6d}x  {name[:90]}")
-    record["launches"] = sum(out["launches"]["rlr_partial"] for out in ranks)
+    record["launches_by_path"] = {
+        "sharded": sum(out["launches"]["rlr_partial"] for out in ranks)}
 
     # round 1 from the seed: sharded vs dense (same slot draws)
     if any(out["sampled"] != ranks[0]["sampled"] for out in ranks):
@@ -2019,7 +2498,26 @@ def phase_sharded(rlr_fused, record, st) -> None:
     log(f"[sharded] one round's real updates, K2 + all_reduce + apply on "
         f"{world} ranks vs K1 on the whole stack, avg+RLR4 / avg / "
         f"sign+RLR4: max |diff| {worst:.3e} (sign exact, avg within {TOL})")
-    record["max_abs_err"] = max(record["max_abs_err"], worst)
+
+    # the signflip round: K2 once on every rank, the plan's all_reduces,
+    # the corrupt slot's rank negated its row, K2 on the scaled blocks
+    atk = [out["attack"] for out in ranks]
+    if (any(a["k2"] != 1 or a["k1"] or a["calls"] != plan
+            or not a["finite"] for a in atk)
+            or sum(a["negated"] for a in atk) != sum(
+                1 for i in ranks[0]["sampled"] if i < cfg.num_corrupt)):
+        raise AssertionError(f"the sharded signflip round: {atk}")
+    k2_err = max(a["k2_err"] for a in atk)
+    log(f"[sharded] signflip round 1 at d={world}: K2 1 launch and {plan} "
+        f"all_reduces on every rank (the attack adds none), "
+        f"{sum(a['negated'] for a in atk)} row(s) negated, train_loss "
+        f"{atk[0]['train_loss']:.4f}; K2 on each rank's scaled block vs "
+        f"its plain version: sign sums exact, weighted sums max |diff| "
+        f"{k2_err:.3e} (tolerance {TOL})")
+    record["launches_by_path"]["sharded signflip"] = sum(a["k2"]
+                                                         for a in atk)
+    record["max_abs_err"] = max(record.get("max_abs_err", 0.0), worst,
+                                k2_err)
 
 
 def nccl_child(port: int) -> None:
@@ -2075,7 +2573,14 @@ def phase_nccl() -> None:
             or not math.isfinite(s["train_loss"])):
         raise AssertionError(f"the NCCL d=1 round: {out}")
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default="",
+                        help="comma-separated phase names to run after "
+                             "build (a rehearsal: no result lines); default "
+                             "every phase")
+    only = [p for p in parser.parse_args(argv).phases.split(",") if p]
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -2116,8 +2621,17 @@ def main() -> int:
               ("cifar10", lambda: phase_cifar10(rlr_fused, record)),
               ("fedemnist", lambda: phase_fedemnist(rlr_fused, record)),
               ("k1 shapes", lambda: phase_k1_shapes(rlr_fused, record)),
-              ("rules", lambda: phase_rules(rlr_fused, record, st)))
+              ("rules", lambda: phase_rules(rlr_fused, record, st)),
+              ("attack", lambda: phase_attack(rlr_fused, record, st)),
+              ("acceptance", lambda: phase_acceptance(rlr_fused, record)))
+    unknown = set(only) - {label for label, _ in phases}
+    if unknown:
+        print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)
+        return 2
+    t_all = time.perf_counter()
     for label, fn in phases:
+        if only and label != "build" and label not in only:
+            continue
         t0 = time.perf_counter()
         try:
             fn()
@@ -2126,12 +2640,16 @@ def main() -> int:
             print(f"chip_smoke: phase {label!r} FAILED", file=sys.stderr)
             return 1
         log(f"[phase] {label}: ok in {time.perf_counter() - t0:.1f} s")
-    # K1's launches: every main-path run of every slice, each read just
-    # after it (by path in launches_by_path)
-    record["launches"] = sum(record["launches_by_path"].values())
+    log(f"[phase] all: {time.perf_counter() - t_all:.1f} s")
+    if only:
+        return 0
+    # each kernel's launches: every main-path run of every slice, each
+    # read just after it (by path in launches_by_path)
+    for r in (record, record2):
+        r["launches"] = sum(r["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path", "shapes")
+            "launches_by_path", "shapes", "attack_stacks")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in (record, record2)]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@ the fields the port runs (slice 1's dense round, slice 2's sharded round
 and health lanes, slice 4's batched local training and chained round,
 slice 5's cifar10 and fedemnist data, ResNet-9 and host-sampled round,
 slice 6's server rules avg|comed|sign|trmean|krum|rfa, the fault model,
-the quarantine set and the health monitor's policy).
+the quarantine set and the health monitor's policy, slice 7's attack
+registry and schedule, the watermark patterns, the defense telemetry and
+the TensorBoard sink).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
@@ -27,17 +29,22 @@ import dataclasses
 import math
 from typing import Optional
 
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+    registry as attack_registry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
     model as fmodel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     monitor as health_monitor)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs.telemetry import (
+    LEVELS as TELEMETRY_LEVELS)
 
 AGGRS = ("avg", "comed", "sign", "trmean", "krum", "rfa")   # ops/aggregate.py
 RLR_THRESHOLD_MODES = ("abs", "scaled")
 DATASETS = ("fmnist", "cifar10", "fedemnist", "synthetic")
 ARCHS = ("auto", "cnn", "resnet9")
 HOST_SAMPLED = ("auto", "on", "off")
-PATTERNS = ("plus", "square")   # JAX's copyright/apple are not ported
+PATTERNS = ("plus", "square", "copyright", "apple")
+ATTACKS = tuple(attack_registry.REGISTRY)   # static | dba | boost | signflip
 AGG_LAYOUTS = ("leaf", "bucket")    # JAX's choices; bucket is not ported
 TRAIN_LAYOUTS = ("vmap", "megabatch")
 
@@ -59,7 +66,7 @@ class Config:
     base_class: int = 5
     target_class: int = 7
     poison_frac: float = 0.0
-    pattern_type: str = "plus"      # plus | square
+    pattern_type: str = "plus"      # plus | square | copyright | apple
     robustLR_threshold: int = 0     # >0 enables the RLR defense
     clip: float = 0.0               # >0 enables client-side PGD L2 projection
     noise: float = 0.0              # >0 adds N(0, noise*clip) server noise
@@ -98,6 +105,37 @@ class Config:
                                     # its EMA baseline
     quarantine: str = ""            # comma-separated client ids taken out
                                     # of every vote (participation mask)
+    # --- adaptive-adversary attack registry (JAX attack/registry.py) ---
+    attack: str = "static"          # static | dba | boost | signflip —
+                                    # the corrupt cohort's strategy:
+                                    # static = the paper's trojan (data
+                                    # poisoning only); dba = the full
+                                    # pattern dealt across corrupt agents
+                                    # (attack/dba.py); boost / signflip =
+                                    # update transforms applied in the
+                                    # round right after local training
+    attack_boost: float = 1.0       # model-replacement scale on corrupt
+                                    # updates (boost: x+boost, signflip:
+                                    # x-boost); 1.0 = magnitude-preserving
+    attack_start: int = 0           # attack schedule (attack/schedule.py;
+                                    # rounds are 1-based): dormant before
+                                    # this round
+    attack_stop: int = 0            # 0 = never stop; start=k, stop=k+1
+                                    # is the one-shot attack
+    attack_every: int = 1           # intermittent: fire every n-th round
+                                    # from attack_start
+    # --- online RLR-threshold adaptation (JAX attack/adapt.py) ---
+    rlr_adapt: str = "off"          # off | on (on: not ported yet)
+    rlr_adapt_every: int = 2        # decide at most every N eval
+                                    # boundaries
+    # --- observability (JAX obs/telemetry.py, utils/metrics.py) ---
+    telemetry: str = "off"          # off | basic | full — defense
+                                    # telemetry: norm percentiles + RLR
+                                    # flip fraction (basic), + vote-margin
+                                    # histogram and honest/corrupt cosine
+                                    # split (full). off adds nothing to the
+                                    # round: training is bit-identical.
+    tensorboard: bool = True        # JSONL metrics always; TB optional
     # --- local-training layout and dispatch (JAX fl/rounds.py) ---
     train_layout: str = "vmap"      # vmap | megabatch (fl/client.py)
     agent_chunk: int = 0            # >0: train agents in sequential chunks
@@ -164,7 +202,10 @@ def build_parser() -> argparse.ArgumentParser:
     for f in dataclasses.fields(Config):
         if f.name in ("use_fused", "host_sampled", "aggr", "corrupt_mode",
                       "rlr_threshold_mode", "health_policy",
-                      "faults_spare_corrupt", "quarantine"):
+                      "faults_spare_corrupt", "quarantine", "attack",
+                      "attack_boost", "attack_start", "attack_stop",
+                      "attack_every", "rlr_adapt", "rlr_adapt_every",
+                      "telemetry", "tensorboard"):
             continue
         p.add_argument(f"--{f.name}", type=type(getattr(d, f.name)),
                        default=getattr(d, f.name))
@@ -190,6 +231,44 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated client ids excluded from every "
                         "round's participation mask (device-resident "
                         "rounds)")
+    p.add_argument("--attack", choices=ATTACKS, default=d.attack,
+                   help="adaptive-adversary strategy (attack/registry.py):"
+                        " static = the paper's trojan (bitwise the legacy "
+                        "poison path); dba = distributed trigger split "
+                        "across corrupt agents; boost = model-replacement "
+                        "scaling of corrupt updates; signflip = RLR-aware "
+                        "anti-vote (corrupt updates negated)")
+    p.add_argument("--attack_boost", type=float, default=d.attack_boost,
+                   help="corrupt-update scale for the in-jit strategies "
+                        "(boost applies +x, signflip applies -x)")
+    p.add_argument("--attack_start", type=int, default=d.attack_start,
+                   help="attack schedule: dormant before this round "
+                        "(late-start; rounds are 1-based; in-jit "
+                        "strategies only)")
+    p.add_argument("--attack_stop", type=int, default=d.attack_stop,
+                   help="attack schedule: inactive from this round on "
+                        "(0 = never; start=k stop=k+1 is one-shot)")
+    p.add_argument("--attack_every", type=int, default=d.attack_every,
+                   help="attack schedule: fire every n-th round from "
+                        "--attack_start (intermittent)")
+    p.add_argument("--rlr_adapt", choices=("off", "on"),
+                   default=d.rlr_adapt,
+                   help="service mode: adapt --robustLR_threshold online "
+                        "from mid-run Defense/* telemetry at eval "
+                        "boundaries (attack/adapt.py; needs --telemetry "
+                        "full and --checkpoint_dir; on is refused: not "
+                        "ported yet)")
+    p.add_argument("--rlr_adapt_every", type=int, default=d.rlr_adapt_every,
+                   help="threshold-adaptation cadence: decide at most "
+                        "every N eval boundaries")
+    p.add_argument("--telemetry", choices=TELEMETRY_LEVELS,
+                   default=d.telemetry,
+                   help="in-jit defense telemetry (obs/telemetry.py): "
+                        "basic = update-norm percentiles + RLR flip "
+                        "fraction; full adds the vote-margin histogram "
+                        "and honest/corrupt cosine split. off is "
+                        "bit-identical to a build without it")
+    p.add_argument("--no_tensorboard", action="store_true")
     p.add_argument("--debug_nan", action="store_true",
                    help="JAX's checkify float checks in the round (refused: "
                         "not ported yet)")
@@ -212,8 +291,9 @@ def args_parser(argv: Optional[list] = None) -> Config:
     what the port does not run yet and naming the missing piece."""
     ns = build_parser().parse_args(argv)
     kw = {k: v for k, v in vars(ns).items()
-          if k not in ("no_fused", "remat", "debug_nan")}
-    cfg = Config(use_fused=not ns.no_fused, **kw)
+          if k not in ("no_fused", "remat", "debug_nan", "no_tensorboard")}
+    cfg = Config(use_fused=not ns.no_fused,
+                 tensorboard=not ns.no_tensorboard, **kw)
     if ns.debug_nan:
         raise ValueError("--debug_nan (JAX's checkify float checks in the "
                          "round) is not ported yet; the health lanes and "
@@ -235,8 +315,11 @@ def args_parser(argv: Optional[list] = None) -> Config:
     if cfg.arch not in ARCHS:
         raise ValueError(f"--arch must be one of {ARCHS}, got {cfg.arch!r}")
     if cfg.pattern_type not in PATTERNS:
-        raise ValueError(f"--pattern_type {cfg.pattern_type!r} is not "
-                         f"ported yet (the port has {PATTERNS})")
+        raise ValueError(f"--pattern_type must be one of {PATTERNS}, got "
+                         f"{cfg.pattern_type!r}")
+    attack_registry.check(cfg)
+    if cfg.rlr_adapt == "on":
+        raise ValueError(RLR_ADAPT_NOT_PORTED)
     if ns.remat:
         raise ValueError("--remat (torch.utils.checkpoint) is not ported "
                          "yet")
@@ -245,6 +328,10 @@ def args_parser(argv: Optional[list] = None) -> Config:
     return cfg
 
 
+RLR_ADAPT_NOT_PORTED = (
+    "--rlr_adapt on (attack/adapt.py: the service driver's online "
+    "threshold adaptation) is not ported yet; it needs the service driver "
+    "and checkpoints")
 CHAINED_HOST_NOT_PORTED = (
     "--chain > 1 with host sampling (JAX make_chained_round_fn_host) is "
     "not ported yet; the host-sampled round runs one round a dispatch")
@@ -281,4 +368,8 @@ def print_exp_details(cfg: Config) -> None:
               f"{cfg.rlr_threshold_mode}")
     print(f"    Health: {cfg.health}  policy {cfg.health_policy}  "
           f"z {cfg.health_z_threshold}  spike x{cfg.health_spike_factor}")
+    print(f"    Attack: {cfg.attack}  boost x{cfg.attack_boost}  schedule "
+          f"start {cfg.attack_start} stop {cfg.attack_stop} every "
+          f"{cfg.attack_every}  Pattern: {cfg.pattern_type}  Telemetry: "
+          f"{cfg.telemetry}")
     print("======================================")

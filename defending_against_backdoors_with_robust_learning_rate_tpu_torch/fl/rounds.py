@@ -26,7 +26,25 @@ whose static input buffers each round refills.
 
 Server step: the fused RLR kernel (ops/rlr_fused.py) wherever
 `_fused_applicable` holds, which is the default; ops/aggregate.py
-otherwise (a rule other than avg or sign, server noise, or faults).
+otherwise (a rule other than avg or sign, server noise, faults, a
+quarantine set, or `--telemetry`).
+
+Attack (`--attack boost|signflip`, attack/registry.py): the update
+strategy scales the corrupt rows of the stacked updates right after local
+training, before the fault injection and the payload check, as JAX's
+`_round_core` does (fl/rounds.py:273-292), so `--payload_norm_cap` and
+the robust rules see the attacker's payload. The [m] attacked slots are
+marked on the host each round from the sampled ids (`id < num_corrupt`)
+and the schedule gate (attack/schedule.active of the round's 1-based
+index), and enter the device work as an input, as the fault draw and the
+noise do, where attack/registry.apply_update_attack scales their rows: a
+captured round replays the attack of the round it runs, never round 1's.
+The host-sampled round refuses a scheduled attack with JAX's error.
+
+Telemetry (`--telemetry basic|full`, obs/telemetry.py): computed in the
+device work over the updates after the attack and the mask, with the
+round's corrupt flags (an input, under `full`); its tel_* values are
+lanes of the round's info, cloned by `make_chained` like the hlth_* lanes.
 
 Faults (`Config.faults_enabled`, faults/): the round's fault draw
 (faults/model.sample_faults: participate, straggler, ep_budget, corrupt,
@@ -72,12 +90,16 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+    registry as attack_registry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
     masking, model as fmodel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.client import (
     draw_slot, make_local_train_batched)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     sentinel as health_sentinel)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
+    telemetry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.aggregate import (
     aggregate_updates, apply_aggregate, draw_noise, robust_lr)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.rlr_fused import (
@@ -127,10 +149,23 @@ def _fused_applicable(cfg) -> bool:
     """`_pallas_applicable` reduced to the fields the port has: the fused
     kernel covers weighted FedAvg or signSGD (with or without the RLR vote)
     with no server noise; the faults path and a quarantine set need the
-    mask threaded through the vote, which the kernel does not take."""
+    mask threaded through the vote, which the kernel does not take; the
+    telemetry reads the explicit lr and aggregate trees, which the kernel
+    never makes (JAX's `cfg.telemetry == "off"` clause).
+
+    Unlike JAX, the kernel stays on under an update attack (boost,
+    signflip). JAX turns its Pallas kernel off there because the attack
+    transforms the updates before the server step, "which the fused
+    kernel's one-pass read would skip" (JAX fl/rounds.py:63-64). Here the
+    attack scales the stacked [m, n] rows first (`_device_round`), and K1
+    reads those scaled rows: it computes exactly what the plain step
+    computes on them, the vote sign(-b*u) = -sign(u) and the weighted sum
+    of the scaled rows (tests/test_torch_attack_round.py holds both
+    steps against JAX's)."""
     return (cfg.use_fused and cfg.aggr in ("avg", "sign") and cfg.noise == 0
             and not cfg.faults_enabled
-            and not health_sentinel.has_quarantine(cfg))
+            and not health_sentinel.has_quarantine(cfg)
+            and cfg.telemetry == "off")
 
 
 def sample_agents(cfg, gen: torch.Generator) -> torch.Tensor:
@@ -138,17 +173,14 @@ def sample_agents(cfg, gen: torch.Generator) -> torch.Tensor:
     return torch.randperm(cfg.num_agents, generator=gen)[:cfg.agents_per_round]
 
 
-def server_step(params, updates, sizes, cfg, noise=None, mask=None):
-    """New params from the stacked [m, ...] updates and their data sizes
-    [m]: the fused kernel, or robust_lr + aggregate (+ the pre-drawn server
-    noise, ops/aggregate.draw_noise) + apply. With a participation `mask`
+def server_terms(updates, sizes, cfg, noise=None, mask=None):
+    """(lr, agg) of the plain server step: the robust lr dict (or the
+    scalar server lr with RLR off) and the aggregate (+ the pre-drawn
+    server noise, ops/aggregate.draw_noise). With a participation `mask`
     ([m] bool), the mask-aware threshold and vote, the masked rule, and
-    `guard_empty` before the apply."""
+    `guard_empty`."""
     thr = float(cfg.robustLR_threshold)
     slr = cfg.effective_server_lr
-    if _fused_applicable(cfg):
-        return fused_rlr_avg_apply(params, updates, sizes.to(torch.float32),
-                                   thr, slr, mode=cfg.aggr)
     if thr > 0:
         t = thr if mask is None else masking.rlr_threshold(cfg, mask)
         lr = robust_lr(updates, t, slr, mask=mask)
@@ -158,18 +190,30 @@ def server_step(params, updates, sizes, cfg, noise=None, mask=None):
     if mask is not None:
         # every payload dropped or rejected: a zero aggregate, a no-op round
         agg = masking.guard_empty(agg, mask)
-    return apply_aggregate(params, lr, agg)
+    return lr, agg
+
+
+def server_step(params, updates, sizes, cfg, noise=None, mask=None):
+    """New params from the stacked [m, ...] updates and their data sizes
+    [m]: the fused kernel, or `server_terms` + apply."""
+    if _fused_applicable(cfg):
+        return fused_rlr_avg_apply(params, updates, sizes.to(torch.float32),
+                                   float(cfg.robustLR_threshold),
+                                   cfg.effective_server_lr, mode=cfg.aggr)
+    return apply_aggregate(params, *server_terms(updates, sizes, cfg, noise,
+                                                 mask))
 
 
 def server_path(params, updates, sizes, cfg, noise=None, draw=None,
-                qmask=None):
-    """The round after local training, in JAX `_round_core`'s order
-    (fl/rounds.py:296-393): with a fault draw, the corrupt payloads
-    injected, mask = participate & payload_valid and the Faults/* scalars;
-    with a quarantine mask `qmask` ([m] bool, True = not quarantined),
-    mask &= qmask and the effective voters recounted; then `server_step`
-    over the mask, and the health lanes over it. Returns (new params,
-    {fault_* and hlth_* lanes})."""
+                qmask=None, flags=None):
+    """The round after local training and the attack, in JAX
+    `_round_core`'s order (fl/rounds.py:293-428): with a fault draw, the
+    corrupt payloads injected, mask = participate & payload_valid and the
+    Faults/* scalars; with a quarantine mask `qmask` ([m] bool, True = not
+    quarantined), mask &= qmask and the effective voters recounted; then
+    `server_step` over the mask, the telemetry (with the corrupt-slot
+    `flags`, [m] bool or None) and the health lanes over it. Returns (new
+    params, {fault_*, tel_* and hlth_* lanes})."""
     mask, info = None, {}
     if draw is not None:
         if cfg.corrupt_rate > 0:
@@ -182,7 +226,14 @@ def server_path(params, updates, sizes, cfg, noise=None, draw=None,
         mask = qmask if mask is None else mask & qmask
         if draw is not None:
             info["fault_voters"] = masking.count_f32(mask)
-    new_params = server_step(params, updates, sizes, cfg, noise, mask)
+    if cfg.telemetry == "off":
+        new_params = server_step(params, updates, sizes, cfg, noise, mask)
+    else:
+        lr, agg = server_terms(updates, sizes, cfg, noise, mask)
+        new_params = apply_aggregate(params, lr, agg)
+        info.update(telemetry.compute(
+            cfg, updates, lr if cfg.robustLR_threshold > 0 else None, agg,
+            mask=mask, corrupt_flags=flags))
     if health_sentinel.health_on(cfg):
         info.update(health_sentinel.sentinel(cfg, updates, new_params,
                                              mask=mask))
@@ -191,8 +242,21 @@ def server_path(params, updates, sizes, cfg, noise=None, draw=None,
 
 def corrupt_slots(cfg, sampled) -> torch.Tensor:
     """[m] bool on the host: the sampled slot holds a malicious agent (the
-    first num_corrupt ids), for --faults_spare_corrupt."""
+    first num_corrupt ids), for --faults_spare_corrupt and the telemetry's
+    cosine split."""
     return torch.as_tensor(np.asarray(sampled) < cfg.num_corrupt)
+
+
+def adversary_inputs(cfg, rnd: int, sampled, device):
+    """Round rnd's (hits, flags) inputs of the device work on `device`:
+    the [m] slots the update attack hits (attack/registry.attacked_slots:
+    the sampled ids' corrupt flags and the schedule gate of round rnd), or
+    None without an update strategy; the [m] corrupt-slot flags under
+    `--telemetry full` (its cosine split), else None."""
+    hits = attack_registry.attacked_slots(cfg, sampled, rnd)
+    flags = (corrupt_slots(cfg, sampled) if cfg.telemetry == "full"
+             else None)
+    return tuple(None if t is None else t.to(device) for t in (hits, flags))
 
 
 def draw_faults(cfg, rng: RoundRNG, rnd: int, sampled, device):
@@ -339,21 +403,23 @@ def make_block_trainer(cfg, model, normalize, images, labels, sizes_host,
 def _device_round(cfg, trainer, qset=None):
     """The round's device work: local training of the block (the
     stragglers' budgets from the fault draw when --straggler_rate > 0),
-    the server path, the loss mean. `draw` is the round's FaultDraw or
-    None, `data` as in `BlockTrainer.run`; `qset` the quarantined ids on
-    the device (health/sentinel.quarantine_set), matched against
+    the update attack, the server path, the loss mean. `draw` is the
+    round's FaultDraw or None, `data` as in `BlockTrainer.run`, `hits`
+    and `flags` as `adversary_inputs` gives them; `qset` the quarantined
+    ids on the device (health/sentinel.quarantine_set), matched against
     `agents`, the sampled ids."""
     def device_round(params, agents, perms, keep, noise, draw=None,
-                     data=None):
+                     data=None, hits=None, flags=None):
         ep_budget = (draw.ep_budget
                      if draw is not None and cfg.straggler_rate > 0 else None)
         updates, losses = trainer.run(params, agents, perms, keep, data,
                                       ep_budget)
+        updates = attack_registry.apply_update_attack(cfg, updates, hits)
         sizes = (trainer.sizes_dev if data is None else data[2])[agents]
         qmask = (None if qset is None
                  else health_sentinel.quarantine_mask(cfg, agents, qset))
         new_params, info = server_path(params, updates, sizes, cfg, noise,
-                                       draw, qmask)
+                                       draw, qmask, flags)
         return new_params, {"train_loss": torch.mean(losses), **info}
     return device_round
 
@@ -362,7 +428,8 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
                   capture: Optional[bool] = None):
     """Device-resident round fn:
     round(params, rng, sampled=None, perms=None, dropout=True, faults=None)
-    -> (params, {"train_loss", "sampled", hlth_* and fault_* lanes}).
+    -> (params, {"train_loss", "sampled", hlth_*, tel_* and fault_*
+    lanes}).
 
     images [K, max_n, H, W, C] and labels [K, max_n] (int64) are tensors on
     the round's device; sizes is the [K] numpy array of true shard sizes.
@@ -370,6 +437,8 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
     permutations) replace the draws from `rng`; dropout=False runs local
     training without dropout; `faults` (a FaultDraw) replaces the round's
     fault draw. A `--quarantine` set leaves its clients out of every vote.
+    An update attack scales the rows of the slots it hits
+    (`adversary_inputs`, made for each round on the host).
 
     `capture` (default: on a CUDA device) runs the round's device work as
     one CUDA graph (utils/compile_cache.RoundGraph): the first round
@@ -398,7 +467,8 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
         noise = draw_noise(params, cfg, rng.noise)
         if faults is None:
             faults = draw_faults(cfg, rng, rnd, sampled, device)
-        new_params, info = step(params, *draws, noise, faults)
+        new_params, info = step(params, *draws, noise, faults, None,
+                                *adversary_inputs(cfg, rnd, sampled, device))
         return new_params, {**info, "sampled": sampled}
 
     round_fn.graph = step if capture else None
@@ -407,32 +477,43 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
 
 def make_host_step(cfg, model, normalize, sizes, n_total: int, device):
     """The host-sampled round's device work (JAX `make_host_step`):
-    step(params, imgs, lbls, slot_sizes, perms, keep, noise, draw=None)
-    -> (params, {"train_loss", hlth_* and fault_* lanes}) over the
+    step(params, imgs, lbls, slot_sizes, perms, keep, noise, draw=None,
+    hits=None, flags=None)
+    -> (params, {"train_loss", hlth_*, tel_* and fault_* lanes}) over the
     gathered stacks
     imgs [m, n_total, H, W, C], lbls [m, n_total] (int64) and slot_sizes
     [m], slot i training row i with its draws perms[i] and keep, and with
-    the round's FaultDraw `draw` (or None without faults). sizes is
+    the round's FaultDraw `draw` (or None without faults), `hits` and
+    `flags` as `adversary_inputs` gives them. sizes is
     the [K] numpy array of true shard sizes the draws read;
     `step.trainer` draws them (`BlockTrainer.draw`). The refusals of JAX's
-    host step (fl/rounds.py:625-671): quarantine is refused with JAX's
-    error, as the step never sees the sampled ids; churn, traffic,
-    buffered aggregation and scheduled or in-program attacks concern
-    features the port does not have."""
+    host step (fl/rounds.py:625-671): quarantine and a scheduled attack
+    are refused with JAX's errors, as the step has no channel for the
+    sampled ids or the round index; churn, traffic and buffered
+    aggregation concern features the port does not have, and the port has
+    no chained host round for JAX's flag-channel refusal to guard. The
+    update attack itself runs: the driver's ids give its flags."""
     if health_sentinel.has_quarantine(cfg):
         raise ValueError(
             "--quarantine is not supported in host-sampled mode (the "
             "program never sees the sampled client ids); run "
             "device-resident (--host_sampled off) or cohort-sampled")
+    if attack_registry.needs_round(cfg):
+        raise ValueError(
+            f"--attack {cfg.attack} with a schedule "
+            f"(attack_start/attack_stop/attack_every) is not supported "
+            f"in host-sampled mode; run device-resident "
+            f"(--host_sampled off) or cohort-sampled")
     device = torch.device(device)
     trainer = make_block_trainer(cfg, model, normalize, None, None, sizes,
                                  device=device, n_total=n_total)
     slots = torch.arange(cfg.agents_per_round, device=device)
     device_round = _device_round(cfg, trainer)
 
-    def step(params, imgs, lbls, slot_sizes, perms, keep, noise, draw=None):
+    def step(params, imgs, lbls, slot_sizes, perms, keep, noise, draw=None,
+             hits=None, flags=None):
         return device_round(params, slots, perms, keep, noise, draw,
-                            (imgs, lbls, slot_sizes))
+                            (imgs, lbls, slot_sizes), hits, flags)
     step.trainer = trainer
     return step
 
@@ -473,7 +554,8 @@ def make_round_fn_host(cfg, model, normalize, sizes, n_total: int, device,
         if faults is None:
             faults = draw_faults(cfg, rng, rnd, ids, device)
         new_params, info = step(params, imgs, lbls, slot_sizes, slot_perms,
-                                keep, noise, faults)
+                                keep, noise, faults,
+                                *adversary_inputs(cfg, rnd, ids, device))
         return new_params, {**info, "sampled": ids}
 
     round_fn.graph = step if capture else None
@@ -484,16 +566,17 @@ def make_chained(round_fn):
     """chained(params, rng, n) -> (params, info): n rounds of round_fn with
     no host sync between them (on a CUDA device, n graph replays), the
     counterpart of JAX's `lax.scan` over a block of rounds. info["sampled"]
-    lists each round's ids; "train_loss", the hlth_* lanes and the
-    FAULT_INFO_KEYS are stacked [n, ...], each round's copied out before
-    the next replay overwrites it."""
+    lists each round's ids; "train_loss", the hlth_* and tel_* lanes and
+    the FAULT_INFO_KEYS are stacked [n, ...], each round's copied out
+    before the next replay overwrites it."""
     def chained(params, rng: RoundRNG, n: int):
         rows, sampled = [], []
         for _ in range(n):
             params, info = round_fn(params, rng)
             sampled.append(info["sampled"])
             rows.append({k: v.clone() for k, v in info.items()
-                         if k == "train_loss" or k.startswith("hlth_")
+                         if k == "train_loss"
+                         or k.startswith(("hlth_", telemetry.PREFIX))
                          or k in FAULT_INFO_KEYS})
         out = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
         return params, {**out, "sampled": sampled}

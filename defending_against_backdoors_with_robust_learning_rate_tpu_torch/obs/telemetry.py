@@ -1,0 +1,224 @@
+"""Defense telemetry: cheap scalars of the RLR vote computed in the round.
+
+Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
+obs/telemetry.py` (`check_level`, `telemetry_keys`, `compute` and its pure
+pieces, `host_summary`, `emit_scalars`), with its keys, tags and bucketing.
+The round computes, on its device and inside the captured CUDA graph:
+
+- ``tel_upd_norm_p50/p95/max``  nearest-rank percentiles of the m
+  per-agent update L2 norms;
+- ``tel_flip_frac``             fraction of coordinates the RLR vote
+  flipped to -server_lr (RLR on only);
+- ``tel_margin_mean``           mean sign-vote margin |sum sign(u)| / m;
+- ``tel_margin_hist``           [N_MARGIN_BUCKETS] fraction of coordinates
+  per bucketized vote margin in [0, m];
+- ``tel_cos_honest/corrupt``    mean cosine of honest (resp. corrupt)
+  agent updates to the aggregate.
+
+``--telemetry`` ``off`` adds nothing to the round; ``basic`` = the norm
+percentiles + flip fraction; ``full`` adds the margin histogram and the
+cosine split. The values are tensors of the round's info, lanes of the
+captured graph like the health lanes, read at eval boundaries as
+``Defense/*`` rows of metrics.jsonl (train.py). Masked agents (faults/,
+quarantine) are zeroed before the stats. The telemetry reads the explicit
+lr and aggregate trees, so it turns the fused server kernel off, as JAX's
+``cfg.telemetry == "off"`` clause of `_pallas_applicable` does.
+
+Not ported: `compute_sharded`, `shard_vote_stats` and
+`compute_sharded_bucket` (the sharded round refuses ``--telemetry``), and
+the buffered path's `sign_sums` / `vote_range` arguments, kept as None.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
+    masking)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.diagnostics import (
+    per_agent_norms)
+
+LEVELS = ("off", "basic", "full")
+N_MARGIN_BUCKETS = 8
+PREFIX = "tel_"
+_EPS = 1e-12
+
+# metrics.jsonl tag per telemetry key; tel_margin_hist expands to one
+# Defense/Vote_Margin_Hist/<i> row per bucket (emit_scalars)
+TAGS = {
+    "tel_upd_norm_p50": "Defense/Update_Norm_P50",
+    "tel_upd_norm_p95": "Defense/Update_Norm_P95",
+    "tel_upd_norm_max": "Defense/Update_Norm_Max",
+    "tel_flip_frac": "Defense/LR_Flip_Fraction",
+    "tel_margin_mean": "Defense/Vote_Margin_Mean",
+    "tel_margin_hist": "Defense/Vote_Margin_Hist",
+    "tel_cos_honest": "Defense/Cosine_Honest_To_Agg",
+    "tel_cos_corrupt": "Defense/Cosine_Corrupt_To_Agg",
+}
+
+
+def check_level(level: str) -> str:
+    if level not in LEVELS:
+        raise ValueError(f"telemetry must be one of {LEVELS}, got {level!r}")
+    return level
+
+
+def telemetry_keys(cfg):
+    """The key set cfg's round emits."""
+    if cfg.telemetry == "off":
+        return ()
+    keys = ["tel_upd_norm_p50", "tel_upd_norm_p95", "tel_upd_norm_max"]
+    if cfg.robustLR_threshold > 0:
+        keys.append("tel_flip_frac")
+    if cfg.telemetry == "full":
+        keys += ["tel_margin_mean", "tel_margin_hist",
+                 "tel_cos_honest", "tel_cos_corrupt"]
+    return tuple(keys)
+
+
+def tags(cfg):
+    """Every Defense/* tag a boundary of cfg's run writes."""
+    out = []
+    for key in telemetry_keys(cfg):
+        if key == "tel_margin_hist":
+            out += [f"{TAGS[key]}/{i}" for i in range(N_MARGIN_BUCKETS)]
+        else:
+            out.append(TAGS[key])
+    return tuple(out)
+
+
+def _norm_percentiles(norms):
+    """Nearest-rank p50/p95/max of the [m] per-agent norms."""
+    m = norms.shape[0]
+    srt = torch.sort(norms).values
+    return {"tel_upd_norm_p50": srt[(m - 1) // 2],
+            "tel_upd_norm_p95": srt[min(m - 1, round(0.95 * (m - 1)))],
+            "tel_upd_norm_max": srt[m - 1]}
+
+
+def _flip_fraction(lr):
+    """Fraction of coordinates whose robust lr went negative."""
+    neg = sum(torch.sum((leaf < 0).to(torch.float32)) for leaf in lr.values())
+    total = sum(leaf.numel() for leaf in lr.values())
+    return neg / total
+
+
+def _bucketize_margins(s, m: int):
+    """[B] coordinate counts of the vote margins s (values in [0, m]),
+    plus their sum: bucket i covers margins in [i*(m+1)/B, (i+1)*(m+1)/B).
+    The counts are added with index_add_ (bincount sizes its output from
+    the data, a host sync a captured round cannot make); each count is an
+    integer below 2**24, exact in f32 in any order."""
+    flat = s.reshape(-1)
+    idx = torch.clamp(torch.div(flat.to(torch.int64) * N_MARGIN_BUCKETS,
+                                m + 1, rounding_mode="floor"),
+                      0, N_MARGIN_BUCKETS - 1)
+    counts = torch.zeros(N_MARGIN_BUCKETS, dtype=torch.float32,
+                         device=flat.device).index_add_(
+        0, idx, torch.ones_like(flat, dtype=torch.float32))
+    return counts, torch.sum(flat.to(torch.float32))
+
+
+def _cosine_accumulators(updates, agg, m: int):
+    """([m] dot(u_k, agg), [m] ||u_k||^2), accumulated leaf by leaf."""
+    u0 = next(iter(updates.values()))
+    dots = torch.zeros(m, dtype=torch.float32, device=u0.device)
+    usq = torch.zeros_like(dots)
+    for k, u in updates.items():
+        uf = u.reshape(m, -1).to(torch.float32)
+        af = agg[k].reshape(-1).to(torch.float32)
+        dots = dots + uf @ af
+        usq = usq + torch.sum(uf * uf, dim=1)
+    return dots, usq
+
+
+def _finish_margins(counts, margin_sum, total_coords: int, m: int):
+    return {"tel_margin_hist": counts / total_coords,
+            "tel_margin_mean": margin_sum / (total_coords * m)}
+
+
+def _finish_cosine(dots, usq, asq, corrupt, valid):
+    """Mean cosine-to-aggregate over the honest and corrupt slots of the
+    `valid` electorate (zero when a group is empty)."""
+    cos = dots * torch.rsqrt(usq * asq + _EPS)
+    out = {}
+    for key, sel in (("tel_cos_honest", valid & ~corrupt),
+                     ("tel_cos_corrupt", valid & corrupt)):
+        n = torch.sum(sel.to(torch.float32))
+        out[key] = torch.where(
+            n > 0, torch.sum(torch.where(sel, cos, 0.0))
+            / torch.clamp(n, min=1.0), 0.0)
+    return out
+
+
+def _agg_sqnorm(agg):
+    return sum(torch.sum(torch.square(a.to(torch.float32)))
+               for a in agg.values())
+
+
+def compute(cfg, updates, lr, agg, mask=None, corrupt_flags=None,
+            sign_sums=None, vote_range=None):
+    """Telemetry dict of the dense round. `updates` are [m, ...] tensors;
+    `lr` the robust-lr dict or None (RLR off); `agg` the aggregate dict;
+    `mask` the [m] participation mask or None; `corrupt_flags` the [m]
+    corrupt-slot flags or None (no split known). `sign_sums` and
+    `vote_range` belong to JAX's buffered path and must stay None."""
+    if sign_sums is not None or vote_range is not None:
+        raise ValueError("the buffered path's telemetry (sign_sums, "
+                         "vote_range) is not ported yet")
+    m = next(iter(updates.values())).shape[0]
+    if mask is not None:
+        updates = masking.zero_masked(updates, mask)
+    out = _norm_percentiles(per_agent_norms(updates))
+    if lr is not None:
+        out["tel_flip_frac"] = _flip_fraction(lr)
+    if cfg.telemetry != "full":
+        return out
+    device = out["tel_upd_norm_max"].device
+    counts = torch.zeros(N_MARGIN_BUCKETS, dtype=torch.float32,
+                         device=device)
+    margin_sum = torch.zeros((), dtype=torch.float32, device=device)
+    for u in updates.values():
+        uf = u.reshape(m, -1).to(torch.float32)
+        c, ms = _bucketize_margins(torch.abs(torch.sum(torch.sign(uf),
+                                                       dim=0)), m)
+        counts, margin_sum = counts + c, margin_sum + ms
+    dots, usq = _cosine_accumulators(updates, agg, m)
+    total = sum(u.numel() // m for u in updates.values())
+    out.update(_finish_margins(counts, margin_sum, total, m))
+    corrupt = (torch.zeros(m, dtype=torch.bool, device=device)
+               if corrupt_flags is None else corrupt_flags)
+    valid = (torch.ones(m, dtype=torch.bool, device=device)
+             if mask is None else mask)
+    out.update(_finish_cosine(dots, usq, _agg_sqnorm(agg), corrupt, valid))
+    return out
+
+
+def host_summary(vals) -> dict:
+    """JSON-able snapshot of the telemetry values in `vals` (host values):
+    tel_* scalars as floats, tel_margin_hist as a float list."""
+    out = {}
+    for key in sorted(vals):
+        if not key.startswith(PREFIX):
+            continue
+        v = vals[key]
+        if getattr(v, "ndim", 0) or isinstance(v, (list, tuple)):
+            out[key] = [float(x) for x in v]
+        else:
+            out[key] = float(v)
+    return out
+
+
+def emit_scalars(writer, vals, step: int) -> None:
+    """Write every telemetry value in `vals` (host values) as Defense/*
+    scalars; a vector series writes one row per bin."""
+    for key in sorted(vals):
+        if not key.startswith(PREFIX):
+            continue
+        tag = TAGS.get(key, f"Defense/{key[len(PREFIX):]}")
+        v = vals[key]
+        if getattr(v, "ndim", 0) or isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                writer.scalar(f"{tag}/{i}", float(x), step)
+        else:
+            writer.scalar(tag, float(v), step)

@@ -30,9 +30,16 @@ torch ops, the fused step's oracle. A round's all_reduces, fused or plain:
 the weight total (avg only), the packed buffer, and the loss with the
 health lanes: 3 for avg, 2 for sign (parallel/multihost.
 leaf_plan_collectives).
+
+Attack (`--attack boost|signflip`): each rank scales its own block of rows,
+the slots [lo, hi) of the round's [m] attacked slots, before the server
+step (JAX parallel/rounds.py:636-667, :745). The slots come from the
+sampled ids and the schedule gate, which every rank computes alike on the
+host, so the attack adds no collective; K2 then reads the scaled block.
+
 Not ported: the bucket layout, comed/trmean/krum/rfa (all_to_all), server
-noise, faults, churn, quarantine, attack strategies, tenants, buffered
-mode, diagnostics and telemetry.
+noise, faults, churn, quarantine, tenants, buffered mode, diagnostics and
+telemetry (JAX obs/telemetry.compute_sharded, shard_vote_stats).
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+    registry as attack_registry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
     RoundRNG, _fused_applicable, make_block_trainer, sample_agents)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
@@ -190,6 +199,10 @@ def _check_sharded(cfg, group: AgentsGroup) -> int:
         raise ValueError("--quarantine on the sharded round is not ported "
                          "yet (the participation mask over the agents "
                          "group)")
+    if cfg.telemetry != "off":
+        raise ValueError(f"--telemetry {cfg.telemetry} on the sharded round "
+                         f"is not ported yet (obs/telemetry.compute_sharded,"
+                         f" shard_vote_stats)")
     return m // d
 
 
@@ -201,7 +214,8 @@ def make_sharded_round_fn(cfg, model, normalize, group: AgentsGroup, images,
 
     images/labels are the full K-agent stacks on the rank's device (every
     rank holds the same seeded data); sizes the [K] numpy shard sizes. The
-    rank trains slots [rank * m/d, (rank + 1) * m/d) of the sampled ids.
+    rank trains slots [rank * m/d, (rank + 1) * m/d) of the sampled ids,
+    and scales the rows the round's update attack hits.
     `sampled` and `perms` (for all m slots) replace the draws as in
     fl/rounds.make_round_fn."""
     mb = _check_sharded(cfg, group)
@@ -220,6 +234,10 @@ def make_sharded_round_fn(cfg, model, normalize, group: AgentsGroup, images,
         sampled = [int(a) for a in sampled]
         updates, losses = train_block(params, rng, rnd, sampled, lo, hi,
                                       perms, dropout)
+        hits = attack_registry.attacked_slots(cfg, sampled, rnd)
+        if hits is not None:
+            updates = attack_registry.apply_update_attack(
+                cfg, updates, hits[lo:hi].to(images.device))
         idx = torch.as_tensor(sampled[lo:hi], device=images.device)
         new_params = sharded_server_step(params, updates, sizes_dev[idx],
                                          cfg, group)

@@ -13,11 +13,15 @@ judged as JAX's `_emit_eval_body` judges it (train.py:1332-1370): the
 health monitor's `assess` over the health lanes and the params' finite
 bit, then `emit_rows` (the Health/* rows), then `enforce` (the policy:
 record warns, abort raises), the reference's rows and a faults run's
-Faults/* rows; the monitor's EMA state is committed last. Faults
-(`--dropout_rate`, `--straggler_rate`, `--corrupt_rate`,
+Faults/* rows, then the Defense/* rows of `--telemetry` (JAX
+train.py:1287-1289, :1387-1389); the monitor's EMA state is committed
+last. Faults (`--dropout_rate`, `--straggler_rate`, `--corrupt_rate`,
 `--payload_norm_cap`) are drawn inside the round fns (fl/rounds.py), the
 corrupt-slot flags from the sampled ids; a `--quarantine` set is printed
-at the start (JAX train.py:208-211) and masked inside the round.
+at the start (JAX train.py:208-211) and masked inside the round. The
+attack config is checked and its banner printed before anything is built
+(JAX train.py:212-216), and so is the telemetry's (:242-243); the slots
+the update attack hits are marked inside the round fns for each round.
 
 The run happens on `cfg.device` (default `cuda`). A run on `cuda` with no
 card raises; it never carries on on the CPU.
@@ -50,8 +54,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+    registry as attack_registry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
-    CHAINED_HOST_NOT_PORTED, Config, args_parser, print_exp_details)
+    CHAINED_HOST_NOT_PORTED, RLR_ADAPT_NOT_PORTED, Config, args_parser,
+    print_exp_details)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.prefetch import (
     HostGather, RoundPrefetcher)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
@@ -66,6 +73,8 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health impo
     monitor as health_monitor, sentinel as health_sentinel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.registry import (
     get_model, init_params, param_count)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
+    telemetry as obs_telemetry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
     multihost)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.mesh import (
@@ -176,7 +185,13 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     """Train cfg.rounds rounds; returns the last boundary's summary (on
     every rank of a sharded run: its params and the run's count of
     all_reduces; on the lead: the metrics)."""
+    obs_telemetry.check_level(cfg.telemetry)
     health_monitor.check(cfg)
+    # the attack config, loudly and before any build (attack/registry.py:
+    # unknown strategy, bad boost, a schedule on a data-side strategy)
+    attack_registry.check(cfg)
+    if cfg.rlr_adapt == "on":
+        raise ValueError(RLR_ADAPT_NOT_PORTED)
     if group is None:
         group = _agents_group(cfg)
     device = group.device if group is not None else resolve_device(
@@ -189,6 +204,12 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
         say(f"[health] quarantined clients: "
             f"{list(health_sentinel.quarantine_ids(cfg))} "
             f"(excluded via the participation mask)")
+    atk_banner = attack_registry.banner(cfg)
+    if atk_banner:
+        say(atk_banner)
+    if cfg.telemetry != "off":
+        say(f"[telemetry] in-jit defense telemetry: {cfg.telemetry} "
+            f"(Defense/* scalars ride the metrics stream)")
     fed = get_federated_data(cfg)
     if fed.synthetic:
         say(f"[data] no {cfg.data} files under {cfg.data_dir!r}: "
@@ -250,8 +271,8 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     summary: Dict = {}
     cum_poison_acc = 0.0
     health_ema = None
-    with (MetricsWriter(cfg.log_dir, run_name(cfg)) if lead
-          else contextlib.nullcontext()) as writer, \
+    with (MetricsWriter(cfg.log_dir, run_name(cfg), cfg.tensorboard)
+          if lead else contextlib.nullcontext()) as writer, \
             contextlib.ExitStack() as stack:
         if host_mode:
             get_unit = _host_units(cfg, fed, device, units, stack, say)
@@ -288,6 +309,10 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                 *((k, info[k])
                   for k in health_sentinel.boundary_keys(cfg)),
                 *((k, info[k]) for k in FAULT_TAGS if k in info))}
+            # the defense telemetry rides the same sync; the margin
+            # histogram comes back as a list
+            vals.update({k: v.tolist() for k, v in info.items()
+                         if k.startswith(obs_telemetry.PREFIX)})
             now = time.perf_counter()
             elapsed = now - t_loop
             # the health policy first, as JAX's _emit_eval_body: its rows,
@@ -308,6 +333,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             writer.scalar("Train/Loss", vals["train_loss"], rnd)
             for tag, value in fault_rows(vals).items():
                 writer.scalar(tag, value, rnd)
+            obs_telemetry.emit_scalars(writer, vals, rnd)
             writer.scalar("Throughput/Rounds_Per_Sec", rnd / elapsed, rnd)
             steady = ((rnd - r_steady) / (now - t_steady) if rnd > r_steady
                       else None)
@@ -320,6 +346,9 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                   f"{vals['poison_loss']:.3f} / {vals['poison_acc']:.3f} |")
             summary = {"round": rnd, "rounds_per_sec": rnd / elapsed,
                        "steady_rounds_per_sec": steady, **vals}
+            defense = obs_telemetry.host_summary(vals)
+            if defense:
+                summary["defense"] = defense
             health_ema = report["new_state"]
     say("Training has finished!")
     if summary:

@@ -5,7 +5,11 @@ utils/metrics.py` (`run_name`, `MetricsWriter`). The scalar tags are the
 reference's TensorBoard names (src/federated.py:81-91); each row is
 {"tag", "value", "step"}, and every run opens with a `_run/start` record,
 so reruns of one config can append to one file and still be split.
-TensorBoard output is not ported yet.
+metrics.jsonl is always written; the same scalars also go to a TensorBoard
+event file in the run dir (torch.utils.tensorboard.SummaryWriter), as the
+JAX writer does, unless `--no_tensorboard` is given or that module does
+not import (the `tensorboard` package is not installed): then the writer
+says so in one log line and writes the JSONL only, as JAX's does.
 
 The Health/* rows come from health/monitor.emit_rows (its `TAGS` are the
 one source of their names), all five of JAX's: the three lanes, the loss
@@ -21,6 +25,8 @@ import os
 import time
 from typing import Optional
 
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+    schedule as attack_schedule)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults.model import (
     INFO_KEYS as FAULT_INFO_KEYS)
 
@@ -38,21 +44,42 @@ def fault_rows(vals) -> dict:
 
 def run_name(cfg) -> str:
     """Hyperparam-derived run dir name (reference src/federated.py:27-31,
-    without its time prefix): a pure function of the config."""
+    without its time prefix): a pure function of the config. A non-static
+    attack adds JAX's `-atk:` cell (strategy, boost, poison_frac, and the
+    schedule when it is not trivial), so scenario cells differing only in
+    those do not share a run dir."""
+    atk = ""
+    if cfg.attack != "static":
+        atk = f"-atk:{cfg.attack}b{cfg.attack_boost}p{cfg.poison_frac}"
+        if not attack_schedule.is_trivial(cfg):
+            atk += (f"s{cfg.attack_start}e{cfg.attack_every}"
+                    + (f"t{cfg.attack_stop}" if cfg.attack_stop else ""))
     return (f"clip_val:{cfg.clip}"
             f"-noise_std:{cfg.noise}-aggr:{cfg.aggr}"
             f"-s_lr:{cfg.effective_server_lr}-num_cor:{cfg.num_corrupt}"
             f"-thrs_robustLR:{cfg.robustLR_threshold}"
-            f"-pttrn:{cfg.pattern_type}-seed:{cfg.seed}")
+            f"-pttrn:{cfg.pattern_type}-seed:{cfg.seed}{atk}")
 
 
 class MetricsWriter:
-    """Appends scalar rows to <log_dir>/<name>/metrics.jsonl."""
+    """Appends scalar rows to <log_dir>/<name>/metrics.jsonl, and to a
+    TensorBoard event file there when `tensorboard` is on and
+    torch.utils.tensorboard imports."""
 
-    def __init__(self, log_dir: str, name: Optional[str] = None):
+    def __init__(self, log_dir: str, name: Optional[str] = None,
+                 tensorboard: bool = True):
         self.dir = os.path.join(log_dir, name) if name else log_dir
         os.makedirs(self.dir, exist_ok=True)
         self.jsonl_path = os.path.join(self.dir, "metrics.jsonl")
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                print(f"[metrics] no TensorBoard sink ({e}); metrics.jsonl "
+                      f"only, as the JAX package's writer without it")
+            else:
+                self._tb = SummaryWriter(self.dir)
         self._jsonl = open(self.jsonl_path, "a")
         self._jsonl.write(json.dumps(
             {"tag": "_run/start", "value": time.time(), "step": -1}) + "\n")
@@ -60,12 +87,19 @@ class MetricsWriter:
     def scalar(self, tag: str, value, step: int) -> None:
         self._jsonl.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), step)
 
     def flush(self) -> None:
         self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.flush()
 
     def close(self) -> None:
+        self.flush()
         self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
 
     def __enter__(self):
         return self
