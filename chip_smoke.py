@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives the port (`defending_against_backdoors_with_robust_learning_rate_tpu_torch`,
-never the JAX package) through fifteen phases and exits non-zero if any
+never the JAX package) through sixteen phases and exits non-zero if any
 fails (`--phases a,b` runs the build and just those phases, a rehearsal
 that prints no result lines):
 
@@ -114,14 +114,19 @@ that prints no result lines):
     comed's sort alone; config 4's seconds a round and its peak device
     memory.
 14. attack: the adversary surface, each run through `train.run` with its
-    counts read as above. The FMNIST attack + RLR run (threshold 4,
-    --agent_chunk 1, the eager warm-up and three replays) under --attack
+    counts read as above. The FMNIST attack + RLR run (threshold 4, the
+    eager warm-up and three replays) under --attack
     boost --attack_boost 8, under --attack signflip --poison_frac 0 and
     under the one-shot boost x8 of round 2: K1 once a round; each
     replayed round against the eager round from the same params and
     draws (cuDNN deterministic, bit for bit); the one-shot rounds 1 and 3
     equal to the static round on the same draws, round 2 not; K1 against
-    its plain version on each run's scaled stack, timed beside its bound.
+    its plain version on each run's scaled stack, timed beside its bound;
+    the boost x8 and signflip runs carry the reputation lanes (on by
+    default under RLR) and hold JAX's suspicion drill at their last
+    boundary (tests/test_reputation.py:415-427): the corrupt agent first
+    in the ranking and Reputation/Suspicion_AUC >= 0.9; each run's folded
+    rows are written to build/chip_smoke/logs_attack/rep_rows.json.
     CIFAR-10 --attack dba on CNN_CIFAR (m = 40, 2 rounds, K1 once a round;
     the corrupt agents' poisoned rows carry their round-robin shards of
     the plus), Fed-EMNIST host-sampled under signflip (m = 33, 2 rounds),
@@ -134,19 +139,35 @@ that prints no result lines):
     stay <= 0.1 at round 10; FedAvg's round-10 value is printed beside
     JAX's bound of >= 0.8 there, which the JAX package itself does not
     reach at this seed.
+16. state: checkpoint and resume, the reputation lanes and the
+    diagnostics, on the FMNIST attack + RLR 4 run at full width (cuDNN
+    deterministic), each run counted as above: 4 rounds at --chain 2
+    --snap 2 against 2 rounds and a --resume to 4
+    (final params bit for bit; every metrics row from round 3 on, apart
+    from _run/start and Throughput/*, the same; K1 once a round in both
+    lives; Reputation/* rows written); the 4 rounds under --reputation
+    off (the same params and training rows, no Reputation/* row); one
+    round's rep_agree / rep_norm on the card against the CPU (agreement
+    exact, norms within 1e-6 relative), timed; --diagnostics for 2 rounds
+    at snap 2 (K1 in round 1, not in round 2: the snap round's plain
+    server step; finite Norms/* and Sign/* rows); the Fisher on the card
+    against the CPU for the same params (FISHER_TOL), timed; one
+    checkpoint save, timed.
 
 The last two lines of standard output are one JSON object per kernel
 (`{"kernels": [...]}`; K1's `launches` counts every main-path run of
-phases 5, 10, 11, 13, 14 and 15, by path in `launches_by_path` (phase 13's
-paths at 0: their server step is the plain one), `shapes` holds phase
-12's timings and `attack_stacks` phase 14's; K2's counts the sharded
-run's and the signflip round's) and `{"ok": true, "device": {...}}`. Without a CUDA
-device it exits with 1 before printing any result.
+phases 5, 10, 11, 13, 14, 15 and 16, by path in `launches_by_path`
+(phase 13's paths at 0: their server step is the plain one), `shapes`
+holds phase 12's timings and `attack_stacks` phase 14's; K2's counts the
+sharded run's and the signflip round's) and `{"ok": true, "device":
+{...}}`. Without a CUDA device it exits with 1 before printing any
+result.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -1041,14 +1062,17 @@ def fedemnist_triple():
             "attack_rlr8": attack.replace(robustLR_threshold=8)}
 
 
-def drive(rlr_fused, what, cfg, k1: bool = True):
+def drive(rlr_fused, what, cfg, k1: bool = True, ran=None, k1_expect=None,
+          replays=None):
     """One train.run with the kernel counts and graph replays set to 0
     just before and read just after: K1 once a round (the first eagerly,
     then once in each replay), or never where `k1` is False (a rule other
     than avg or sign, or faults: the plain server step), every round after
-    the first a replay, no K2. Returns the summary with the counts, the
-    run's peak device memory (above what the process held before it) and
-    the run's seconds."""
+    the first a replay, no K2. `ran` is the rounds this run dispatches (a
+    resumed run's; default cfg.rounds); `k1_expect` and `replays` replace
+    the expected counts (a --diagnostics run's). Returns the summary with
+    the counts, the run's peak device memory (above what the process held
+    before it) and the run's seconds."""
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
         train)
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
@@ -1066,9 +1090,10 @@ def drive(rlr_fused, what, cfg, k1: bool = True):
     s["launches"] = rlr_fused.LAUNCHES["rlr_fused"]
     s["replays"] = compile_cache.GRAPH_REPLAYS["round"]
     s["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    steady = s["steady_rounds_per_sec"]
     log(f"[{what}] {s['rounds_per_sec']:.3f} rounds/s with eval "
-        f"({s['steady_rounds_per_sec']:.3f} steady, after the first "
-        f"dispatch), train_loss {s['train_loss']:.4f}, val_acc "
+        f"({'no' if steady is None else f'{steady:.3f}'} steady, after the "
+        f"first dispatch), train_loss {s['train_loss']:.4f}, val_acc "
         f"{s['val_acc']:.4f}, poison_acc {s['poison_acc']:.4f} at round "
         f"{s['round']}; K1 {s['launches']} launches, {s['replays']} graph "
         f"replays; the run's peak device memory {s['peak_gib']:.2f} GiB; "
@@ -1082,13 +1107,17 @@ def drive(rlr_fused, what, cfg, k1: bool = True):
     for k, v in s["params"].items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{what}: non-finite params in {k}")
-    k1_expect = cfg.rounds if k1 else 0
-    if (s["launches"] != k1_expect or s["replays"] != cfg.rounds - 1
+    ran = cfg.rounds if ran is None else ran
+    if k1_expect is None:
+        k1_expect = ran if k1 else 0
+    if replays is None:
+        replays = ran - 1
+    if (s["launches"] != k1_expect or s["replays"] != replays
             or rlr_fused.LAUNCHES["rlr_partial"]):
         raise AssertionError(
             f"{what}: {s['launches']} K1 launches and {s['replays']} "
-            f"replays in {cfg.rounds} rounds, expected {k1_expect} and "
-            f"{cfg.rounds - 1}; K2 {rlr_fused.LAUNCHES['rlr_partial']}")
+            f"replays in {ran} rounds, expected {k1_expect} and "
+            f"{replays}; K2 {rlr_fused.LAUNCHES['rlr_partial']}")
     return s
 
 
@@ -1757,14 +1786,15 @@ ATTACK_DIR = "build/chip_smoke/logs_attack"
 
 
 def attack_fmnist_cfgs():
-    """The FMNIST attack + RLR run (threshold 4, --agent_chunk 1) under
-    boost x8, under the clean anti-vote (signflip, poison_frac 0) and
-    under the one-shot boost x8 of round 2 (JAX's `boost_oneshot`
-    scenario, scripts/sweep_scenarios.py:92-94; boost 1 would leave
-    round 2 unchanged)."""
+    """The FMNIST attack + RLR run (threshold 4) under boost x8, under the
+    clean anti-vote (signflip, poison_frac 0) and under the one-shot boost
+    x8 of round 2 (JAX's `boost_oneshot` scenario, scripts/
+    sweep_scenarios.py:92-94; boost 1 would leave round 2 unchanged). All
+    agents train as one block: --agent_chunk 1's round is faster, but its
+    eager warm-up and capture cost a 4-round run about 3x the time on the
+    H100 (PERF.md)."""
     base = triple()["attack_rlr4"].replace(
-        rounds=ATTACK_ROUNDS, snap=ATTACK_ROUNDS, agent_chunk=1,
-        log_dir=ATTACK_DIR)
+        rounds=ATTACK_ROUNDS, snap=ATTACK_ROUNDS, log_dir=ATTACK_DIR)
     return {"boost8": base.replace(attack="boost", attack_boost=8.0),
             "signflip": base.replace(attack="signflip", poison_frac=0.0),
             "boost8 one-shot": base.replace(attack="boost",
@@ -1916,10 +1946,52 @@ def defense_rows_of(cfg):
     return [r for r in rows[start:] if r["tag"].startswith("Defense/")]
 
 
+@contextlib.contextmanager
+def recording_folds():
+    """Within the block, every ReputationTracker.fold call's (round, ids,
+    rep_agree, rep_norm) is kept in the list `with` gives: the rows a run
+    folded, for a replay through JAX's tracker on the CPU."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
+        reputation)
+    cls, orig, calls = (reputation.ReputationTracker,
+                        reputation.ReputationTracker.fold, [])
+
+    def fold(tracker, round_id, ids, agrees, norms=None):
+        calls.append([int(round_id), [int(i) for i in ids],
+                      [float(a) for a in agrees],
+                      None if norms is None else [float(n) for n in norms]])
+        return orig(tracker, round_id, ids, agrees, norms)
+    cls.fold = fold
+    try:
+        yield calls
+    finally:
+        cls.fold = orig
+
+
+def suspicion_drill(label, s, calls):
+    """JAX's acceptance drill of the reputation plane (tests/
+    test_reputation.py:415-427) at the run's last boundary: the ranking,
+    which never reads a corrupt flag, puts the corrupt agent (id 0) first,
+    and its AUC against the ground truth is >= 0.9."""
+    susp = s["suspicion"]
+    log(f"[attack] {label}: reputation over {susp['rounds']} rounds "
+        f"({len(calls)} folds): AUC {susp.get('auc')}, ranking "
+        f"{susp['suspects'][:4]} (scores {susp['scores'][:4]}), "
+        f"{susp['suspect_count']} suspects; round 4's rep_norm "
+        f"{[round(n, 4) for n in calls[-1][3]]}, rep_agree "
+        f"{[round(a, 4) for a in calls[-1][2]]} (ids {calls[-1][1]})")
+    if (susp["mode"] != "dense" or susp["rounds"] != ATTACK_ROUNDS
+            or len(calls) != ATTACK_ROUNDS):
+        raise AssertionError(f"{label}: the tracker folded {susp}")
+    if not (susp.get("auc", 0.0) >= 0.9 and susp["suspects"][0] == 0):
+        raise AssertionError(f"{label}: the suspicion drill: {susp}")
+
+
 def phase_attack(rlr_fused, record, st) -> None:
     """The adversary surface through train.run, each run's counts set to 0
     just before and read just after: FMNIST under boost x8, signflip and
-    the one-shot boost (K1 once a round, three replays each), CIFAR-10
+    the one-shot boost (K1 once a round, three replays each; the
+    suspicion drill on the first two), CIFAR-10
     DBA on CNN_CIFAR (m = 40), Fed-EMNIST host-sampled under signflip
     (m = 33), FMNIST signflip with full telemetry (K1 0 launches, every
     Defense/* row finite). Then each FMNIST round's replay against the
@@ -1944,8 +2016,17 @@ def phase_attack(rlr_fused, record, st) -> None:
     t_phase = time.perf_counter()
     launches = 0
     fmnist = attack_fmnist_cfgs()
+    folds = {}
     for label, cfg in fmnist.items():
-        launches += drive(rlr_fused, f"attack {label}", cfg)["launches"]
+        with recording_folds() as calls:
+            s = drive(rlr_fused, f"attack {label}", cfg)
+        launches += s["launches"]
+        folds[label] = calls
+        if label in ("boost8", "signflip"):
+            suspicion_drill(label, s, calls)
+    os.makedirs(ATTACK_DIR, exist_ok=True)
+    with open(os.path.join(ATTACK_DIR, "rep_rows.json"), "w") as f:
+        json.dump(folds, f)
     cfg_dba = cifar10_triple()["attack_rlr8"].replace(
         attack="dba", rounds=2, snap=2, log_dir=ATTACK_DIR)
     launches += drive(rlr_fused, "attack cifar10 dba", cfg_dba)["launches"]
@@ -2573,6 +2654,224 @@ def phase_nccl() -> None:
             or not math.isfinite(s["train_loss"])):
         raise AssertionError(f"the NCCL d=1 round: {out}")
 
+# checkpoint and resume, the reputation lanes and the diagnostics (the
+# state a checkpoint carries and its two producers)
+
+STATE_DIR = "build/chip_smoke/state"
+FISHER_TOL = 1e-4           # card vs CPU Fisher: relative L2 of the vector
+
+
+def state_rows(cfg, first=1):
+    """The rows of cfg's last life (after its last _run/start) from round
+    `first` on, without the _run/start and Throughput/* rows."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
+        run_name)
+    with open(os.path.join(cfg.log_dir, run_name(cfg), "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    start = max(i for i, r in enumerate(rows) if r["tag"] == "_run/start")
+    return [r for r in rows[start:] if r["step"] >= first
+            and not r["tag"].startswith(("_run/", "Throughput/"))]
+
+
+def same_params(a, b):
+    return all(torch.equal(a[k], v) for k, v in b.items())
+
+
+def phase_state(rlr_fused, record, st) -> None:
+    """The FMNIST attack + RLR 4 run (cuDNN deterministic; all agents as
+    one block, as in attack_fmnist_cfgs): 4 rounds at --chain 2 --snap 2
+    against 2 rounds and a --resume to 4 (params bit for bit, every row
+    from round 3 on the same apart from _run/start and Throughput/*, K1
+    once a round, Reputation/* rows written); the 4 rounds under
+    --reputation off (the same params and training rows, no Reputation/*
+    row); one round's rep lanes on the card against the CPU (agreement
+    exact, norms 1e-6 relative) and their time; --diagnostics for 2
+    rounds at snap 2 (K1 in round 1 only, finite Norms/* and Sign/*
+    rows); the Fisher on the card against the CPU (FISHER_TOL) and its
+    time; one save's time."""
+    import shutil
+
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        common, diagnostics, rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.evaluate import (
+        pad_eval_set)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
+        reputation)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+        checkpoint as ckpt)
+
+    st = st or round_setup()
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    shutil.rmtree(STATE_DIR, ignore_errors=True)
+    base = triple()["attack_rlr4"].replace(rounds=4, snap=2, chain=2)
+    straight = base.replace(log_dir=f"{STATE_DIR}/logs_a",
+                            checkpoint_dir=f"{STATE_DIR}/ck_a")
+    cut = base.replace(rounds=2, log_dir=f"{STATE_DIR}/logs_b",
+                       checkpoint_dir=f"{STATE_DIR}/ck_b")
+    off = base.replace(reputation="off", log_dir=f"{STATE_DIR}/logs_off")
+    diag = base.replace(rounds=2, chain=1, diagnostics=True,
+                        log_dir=f"{STATE_DIR}/logs_diag")
+    strict = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    _strict_numerics()
+    try:
+        runs = {"straight": drive(rlr_fused, "state straight 4", straight),
+                "cut": drive(rlr_fused, "state cut at 2", cut)}
+        runs["resumed"] = drive(rlr_fused, "state resumed to 4",
+                                cut.replace(rounds=4, resume=True), ran=2)
+        runs["off"] = drive(rlr_fused, "state reputation off", off)
+        # 2 rounds at snap 2: round 1 the plain round's graph warms up
+        # (K1), round 2 the diag round's (the plain server step)
+        runs["diag"] = drive(rlr_fused, "state diagnostics", diag,
+                             k1_expect=1, replays=0)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = strict
+    launches = sum(s["launches"] for s in runs.values())
+    log(f"[state] the runs through train.run: "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase; K1 "
+        f"{launches} launches (4 + 2 + 2 + 4 + 1)")
+
+    if ckpt.saved_rounds(cut.checkpoint_dir) != [2, 4]:
+        raise AssertionError(
+            f"checkpoints {ckpt.saved_rounds(cut.checkpoint_dir)}")
+    if not same_params(runs["resumed"]["params"], runs["straight"]["params"]):
+        raise AssertionError("the resumed run's params left the straight "
+                             "run's")
+    rows_a, rows_b = state_rows(straight, 3), state_rows(cut, 3)
+    if rows_a != rows_b:
+        diff = [(a, b) for a, b in zip(rows_a, rows_b) if a != b][:3]
+        raise AssertionError(f"rows from round 3 differ: {diff} "
+                             f"({len(rows_a)} / {len(rows_b)} rows)")
+    rep_rows = [r for r in rows_a if r["tag"].startswith("Reputation/")]
+    if not rep_rows:
+        raise AssertionError("no Reputation/* rows")
+    log(f"[state] resumed at round 2 to 4 (chain 2, snap 2) == 4 rounds "
+        f"straight: params bit for bit, {len(rows_a)} rows of rounds 3-4 "
+        f"the same ({len(rep_rows)} Reputation/*), K1 once a round in "
+        f"both lives")
+    training = [r for r in state_rows(straight)
+                if not r["tag"].startswith("Reputation/")]
+    if (state_rows(off) != training
+            or not same_params(runs["off"]["params"],
+                               runs["straight"]["params"])):
+        raise AssertionError("--reputation off moved the training rows")
+    log(f"[state] --reputation off: the same params and {len(training)} "
+        f"training rows bit for bit, no Reputation/* row")
+
+    # one round's stack: the lanes on the card against the CPU, timed
+    cfg, params = base, st["params"]
+    sampled = list(range(cfg.num_agents))
+    updates, _ = rounds.make_block_trainer(
+        cfg.replace(agent_chunk=0), st["model"], st["norm"], st["images"],
+        st["labels"], st["fed"].train.sizes)(
+            params, rounds.RoundRNG(cfg.seed, DEVICE), 1, sampled, 0,
+            len(sampled))
+    lanes = reputation.lanes(updates)
+    want = reputation.lanes({k: v.cpu() for k, v in updates.items()})
+    if not torch.equal(lanes["rep_agree"].cpu(), want["rep_agree"]):
+        gap = (lanes["rep_agree"].cpu() - want["rep_agree"]).abs().max()
+        raise AssertionError(f"rep_agree {lanes['rep_agree'].tolist()} vs "
+                             f"{want['rep_agree'].tolist()} (max |diff| "
+                             f"{float(gap):.3e})")
+    norm_err = float(((lanes["rep_norm"].cpu() - want["rep_norm"]).abs()
+                      / want["rep_norm"]).max())
+    if norm_err > 1e-6:
+        raise AssertionError(f"rep_norm {norm_err:.2e} relative")
+    scratch = torch.empty(64 * 2 ** 20, device=DEVICE)
+
+    def flush():
+        scratch.zero_()
+    lanes_ms = time_ms(lambda: reputation.lanes(updates), flush, reps=20)
+    n = sum(v[0].numel() for v in updates.values())
+    log(f"[state] rep lanes of one round's stack (m={len(sampled)}, "
+        f"n={n:,}; {name}): agreement equal to the CPU's, norms within "
+        f"{norm_err:.2e} relative; {lanes_ms:.4f} ms between CUDA events "
+        f"(L2 flushed); rep_agree "
+        f"{[round(a, 4) for a in want['rep_agree'].tolist()]}")
+    del updates
+
+    # --diagnostics: finite rows; the Fisher on the card against the CPU
+    diag_rows = [r for r in state_rows(diag)
+                 if r["tag"].startswith(("Norms/", "Sign/"))]
+    if (len(diag_rows) != 9 or {r["step"] for r in diag_rows} != {2}
+            or not all(math.isfinite(r["value"]) for r in diag_rows)):
+        raise AssertionError(f"the diagnostics rows: {diag_rows}")
+    fed = st["fed"]
+    pval = [torch.from_numpy(a) for a in pad_eval_set(
+        fed.pval_images, fed.pval_labels, cfg.eval_bs)]
+    p_card = {k: v.clone() for k, v in runs["diag"]["params"].items()}
+    fisher = diagnostics.make_fisher_fn(st["model"], st["norm"])
+    fisher_cpu = diagnostics.make_fisher_fn(
+        st["model"], common.make_normalizer(fed.mean, fed.std, "cpu"))
+    card = [a.to(DEVICE) for a in pval]
+    got = diagnostics.flat(fisher(p_card, *card)).cpu()
+    want = diagnostics.flat(fisher_cpu({k: v.cpu() for k, v in
+                                        p_card.items()}, *pval))
+    fisher_err = float(torch.linalg.vector_norm(got - want)
+                       / torch.linalg.vector_norm(want))
+    if not fisher_err <= FISHER_TOL:
+        raise AssertionError(f"the Fisher: {fisher_err:.2e} relative L2")
+    fisher_ms = time_ms(lambda: fisher(p_card, *card), flush, reps=10,
+                        warmup=2)
+    save_s = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        ckpt.save(f"{STATE_DIR}/ck_timed", i + 1, p_card,
+                  rounds.RoundRNG(0, DEVICE).state_dict(), 0.0)
+        save_s.append(time.perf_counter() - t0)
+    save_bytes = os.path.getsize(f"{STATE_DIR}/ck_timed/round_000001/"
+                                 f"{ckpt.STATE_NAME}")
+    sign = {r["tag"]: r["value"] for r in diag_rows}
+    log(f"[state] --diagnostics, 2 rounds at snap 2 (K1 round 1 only; "
+        f"{name}): Norms honest / corrupt "
+        f"{sign['Norms/Avg_Honest_L2']:.4f} / "
+        f"{sign['Norms/Avg_Corrupt_L2']:.4f}, Sign/Model_Net_L2_Cumulative "
+        f"{sign['Sign/Model_Net_L2_Cumulative']:.4f}; the Fisher on the "
+        f"card within {fisher_err:.2e} relative L2 of the CPU's "
+        f"({pval[0].shape[0]} batch(es) of {cfg.eval_bs}), "
+        f"{fisher_ms:.3f} ms a pass between CUDA events; one save "
+        f"({save_bytes / 1e6:.2f} MB) median "
+        f"{statistics.median(save_s) * 1e3:.2f} ms "
+        f"(min {min(save_s) * 1e3:.2f})")
+    steady = runs["straight"]["steady_rounds_per_sec"]
+    log(f"[state] straight run steady {steady:.4f} rounds/s "
+        f"({1e3 / steady:.1f} ms a round with eval); the lanes "
+        f"{lanes_ms:.4f} ms")
+    record["launches_by_path"]["state"] = launches
+    log(f"[state] phase time {time.perf_counter() - t_phase:.1f} s")
+
+
+# every config field the federated data's build reads (data/registry.py,
+# attack/dba.py, attack/patterns.py)
+DATA_FIELDS = ("data", "data_dir", "num_agents", "num_corrupt", "poison_frac",
+               "pattern_type", "base_class", "target_class", "seed", "bs",
+               "synth_train_size", "synth_val_size", "synth_hardness",
+               "attack")
+
+
+def keep_federated_data() -> None:
+    """Build each federated data set once for the script's life: the
+    phases' runs share a few (train.run and the phases build them from the
+    config, and the build is a deterministic function of DATA_FIELDS), so
+    a run after the first with the same fields reuses the arrays, which
+    nothing writes to."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
+        train)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+        registry)
+    build, kept = registry.get_federated_data, {}
+
+    def get_federated_data(cfg):
+        key = tuple(getattr(cfg, f) for f in DATA_FIELDS)
+        if key not in kept:
+            kept[key] = build(cfg)
+        return kept[key]
+    registry.get_federated_data = train.get_federated_data = (
+        get_federated_data)
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2591,6 +2890,7 @@ def main(argv=None) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import (
         rlr_fused)
+    keep_federated_data()
 
     record = {"name": "rlr_fused", "route": "cuda",
               "source": f"{PKG}/csrc/rlr_fused.cu",
@@ -2623,7 +2923,8 @@ def main(argv=None) -> int:
               ("k1 shapes", lambda: phase_k1_shapes(rlr_fused, record)),
               ("rules", lambda: phase_rules(rlr_fused, record, st)),
               ("attack", lambda: phase_attack(rlr_fused, record, st)),
-              ("acceptance", lambda: phase_acceptance(rlr_fused, record)))
+              ("acceptance", lambda: phase_acceptance(rlr_fused, record)),
+              ("state", lambda: phase_state(rlr_fused, record, st)))
     unknown = set(only) - {label for label, _ in phases}
     if unknown:
         print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)

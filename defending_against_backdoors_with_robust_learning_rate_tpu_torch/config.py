@@ -5,7 +5,8 @@ slice 5's cifar10 and fedemnist data, ResNet-9 and host-sampled round,
 slice 6's server rules avg|comed|sign|trmean|krum|rfa, the fault model,
 the quarantine set and the health monitor's policy, slice 7's attack
 registry and schedule, the watermark patterns, the defense telemetry and
-the TensorBoard sink).
+the TensorBoard sink, slice 8's checkpoint and resume, the reputation
+lanes and tracker, and the reference's diagnostics).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
@@ -35,6 +36,8 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults impo
     model as fmodel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     monitor as health_monitor)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
+    reputation)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs.telemetry import (
     LEVELS as TELEMETRY_LEVELS)
 
@@ -136,6 +139,27 @@ class Config:
                                     # split (full). off adds nothing to the
                                     # round: training is bit-identical.
     tensorboard: bool = True        # JSONL metrics always; TB optional
+    # --- per-client reputation (JAX obs/reputation.py) ---
+    reputation: str = "auto"        # auto | on | off — the rep_agree and
+                                    # rep_norm lanes of every round, folded
+                                    # into a per-client suspicion ledger
+                                    # (Reputation/* rows). auto = on
+                                    # whenever a sign vote exists
+                                    # (robustLR_threshold > 0 or aggr
+                                    # 'sign'); off removes the lanes, and
+                                    # training is bit-identical
+    rep_population_cap: int = 100000  # dense per-client state up to this
+                                    # population; a count-min sketch +
+                                    # top-k ledger above it
+    rep_topk: int = 64              # heavy-hitter ledger width
+    rep_streak: int = 3             # consecutive vote-losing rounds before
+                                    # a client counts as a suspect
+    # --- research diagnostics (JAX fl/diagnostics.py; reference C13) ---
+    diagnostics: bool = False       # Norms/* + Sign/* rows at snap rounds
+    top_frac: int = 100             # sign-agreement diagnostic top-k params
+    # --- checkpoint and resume (JAX utils/checkpoint.py) ---
+    checkpoint_dir: str = ""        # "" disables checkpointing
+    resume: bool = False
     # --- local-training layout and dispatch (JAX fl/rounds.py) ---
     train_layout: str = "vmap"      # vmap | megabatch (fl/client.py)
     agent_chunk: int = 0            # >0: train agents in sequential chunks
@@ -205,7 +229,8 @@ def build_parser() -> argparse.ArgumentParser:
                       "faults_spare_corrupt", "quarantine", "attack",
                       "attack_boost", "attack_start", "attack_stop",
                       "attack_every", "rlr_adapt", "rlr_adapt_every",
-                      "telemetry", "tensorboard"):
+                      "telemetry", "tensorboard", "reputation",
+                      "diagnostics", "resume"):
             continue
         p.add_argument(f"--{f.name}", type=type(getattr(d, f.name)),
                        default=getattr(d, f.name))
@@ -269,6 +294,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "and honest/corrupt cosine split. off is "
                         "bit-identical to a build without it")
     p.add_argument("--no_tensorboard", action="store_true")
+    p.add_argument("--reputation", choices=reputation.MODES,
+                   default=d.reputation,
+                   help="per-client defense-provenance lanes "
+                        "(obs/reputation.py): rep_agree + rep_norm per "
+                        "sampled client, folded into a longitudinal "
+                        "suspicion ledger (Reputation/* rows). auto = on "
+                        "when a sign vote exists; off is bit-identical")
+    p.add_argument("--diagnostics", action="store_true",
+                   help="log Norms/* and Sign/* research scalars "
+                        "(the reference's dead-code diagnostics, C13)")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the newest valid checkpoint under "
+                        "--checkpoint_dir before the first round")
     p.add_argument("--debug_nan", action="store_true",
                    help="JAX's checkify float checks in the round (refused: "
                         "not ported yet)")
@@ -318,6 +356,7 @@ def args_parser(argv: Optional[list] = None) -> Config:
         raise ValueError(f"--pattern_type must be one of {PATTERNS}, got "
                          f"{cfg.pattern_type!r}")
     attack_registry.check(cfg)
+    reputation.check(cfg)
     if cfg.rlr_adapt == "on":
         raise ValueError(RLR_ADAPT_NOT_PORTED)
     if ns.remat:
@@ -372,4 +411,7 @@ def print_exp_details(cfg: Config) -> None:
           f"start {cfg.attack_start} stop {cfg.attack_stop} every "
           f"{cfg.attack_every}  Pattern: {cfg.pattern_type}  Telemetry: "
           f"{cfg.telemetry}")
+    print(f"    Reputation: {cfg.reputation}  Diagnostics: "
+          f"{cfg.diagnostics} (top {cfg.top_frac})  Checkpoints: "
+          f"{cfg.checkpoint_dir or 'off'}  Resume: {cfg.resume}")
     print("======================================")

@@ -27,7 +27,7 @@ whose static input buffers each round refills.
 Server step: the fused RLR kernel (ops/rlr_fused.py) wherever
 `_fused_applicable` holds, which is the default; ops/aggregate.py
 otherwise (a rule other than avg or sign, server noise, faults, a
-quarantine set, or `--telemetry`).
+quarantine set, `--telemetry`, or the snap rounds of `--diagnostics`).
 
 Attack (`--attack boost|signflip`, attack/registry.py): the update
 strategy scales the corrupt rows of the stacked updates right after local
@@ -81,6 +81,19 @@ tests inject the sampled ids and permutations and turn dropout off.
 With the health lanes on (--health, the default), the round's info also
 holds the hlth_* lanes of health/sentinel.py; with faults, the
 FAULT_INFO_KEYS of faults/model.fault_scalars.
+
+Reputation (`--reputation`, obs/reputation.py; on by default whenever a
+sign vote exists): `_device_round` computes the [m] rep_agree and rep_norm
+lanes from the stack after the attack, masked slots zeroed, before the
+server step (K1 stays on), inside the captured graph; `make_chained`
+stacks them like the other lanes.
+
+Diagnostics (`--diagnostics`, fl/diagnostics.py): a round fn built from a
+config with `diagnostics` set runs the plain server step (K1 never makes
+the lr) and adds "agent_norms" ([m]) and, with RLR on, "lr_flat" (the
+flat lr) to its info. The driver (train.py) builds that round fn beside
+the plain one and runs it on the snap rounds only (JAX's plain/diag
+program pair, train.py:340-342); on a card each is its own captured graph.
 """
 
 from __future__ import annotations
@@ -94,12 +107,14 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack impo
     registry as attack_registry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
     masking, model as fmodel)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+    diagnostics)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.client import (
     draw_slot, make_local_train_batched)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     sentinel as health_sentinel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
-    telemetry)
+    reputation, telemetry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.aggregate import (
     aggregate_updates, apply_aggregate, draw_noise, robust_lr)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.rlr_fused import (
@@ -117,7 +132,13 @@ class RoundRNG:
     draws the sampled agent ids, `slot(rnd, i)` gives sampled slot i's
     generator of round rnd (its shuffles, then its dropout masks), `noise`
     draws the server noise, `faults(rnd)` gives round rnd's fault
-    generator (CPU). `next_round` numbers the rounds from 1."""
+    generator (CPU). `next_round` numbers the rounds from 1.
+
+    `host` and `noise` are stateful and `round` is a counter; `slot` and
+    `faults` are functions of (seed, round, slot). `state_dict` /
+    `load_state` carry the three, the port's counterpart of the PRNG key
+    JAX's checkpoint saves: a resumed run draws the ids and the noise the
+    uninterrupted run draws."""
 
     def __init__(self, seed: int, device):
         self.seed = seed
@@ -129,6 +150,24 @@ class RoundRNG:
     def next_round(self) -> int:
         self.round += 1
         return self.round
+
+    def state_dict(self) -> dict:
+        """The stateful part: the round counter and the host and noise
+        generators' states, with the device type that wrote them."""
+        return {"device": self.device.type, "round": self.round,
+                "host": self.host.get_state(),
+                "noise": self.noise.get_state()}
+
+    def load_state(self, state: dict) -> None:
+        """Continue from `state_dict`'s state; a state written on another
+        device type raises (a generator's state does not carry across)."""
+        if state["device"] != self.device.type:
+            raise ValueError(
+                f"random streams written on {state['device']} cannot "
+                f"continue on {self.device.type}")
+        self.round = int(state["round"])
+        self.host.set_state(state["host"])
+        self.noise.set_state(state["noise"])
 
     def slot(self, rnd: int, slot: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
@@ -161,9 +200,15 @@ def _fused_applicable(cfg) -> bool:
     reads those scaled rows: it computes exactly what the plain step
     computes on them, the vote sign(-b*u) = -sign(u) and the weighted sum
     of the scaled rows (tests/test_torch_attack_round.py holds both
-    steps against JAX's)."""
+    steps against JAX's).
+
+    The reputation lanes (obs/reputation.py) leave the kernel on: they are
+    computed from the stack before it runs. `--diagnostics` turns it off
+    in the config it is set in, the snap rounds' round fn (train.py): that
+    round reads the explicit lr, as JAX's `not cfg.diagnostics` clause
+    says."""
     return (cfg.use_fused and cfg.aggr in ("avg", "sign") and cfg.noise == 0
-            and not cfg.faults_enabled
+            and not cfg.diagnostics and not cfg.faults_enabled
             and not health_sentinel.has_quarantine(cfg)
             and cfg.telemetry == "off")
 
@@ -205,15 +250,18 @@ def server_step(params, updates, sizes, cfg, noise=None, mask=None):
 
 
 def server_path(params, updates, sizes, cfg, noise=None, draw=None,
-                qmask=None, flags=None):
+                qmask=None, flags=None, lanes: bool = False):
     """The round after local training and the attack, in JAX
     `_round_core`'s order (fl/rounds.py:293-428): with a fault draw, the
     corrupt payloads injected, mask = participate & payload_valid and the
     Faults/* scalars; with a quarantine mask `qmask` ([m] bool, True = not
-    quarantined), mask &= qmask and the effective voters recounted; then
-    `server_step` over the mask, the telemetry (with the corrupt-slot
-    `flags`, [m] bool or None) and the health lanes over it. Returns (new
-    params, {fault_*, tel_* and hlth_* lanes})."""
+    quarantined), mask &= qmask and the effective voters recounted; with
+    `lanes`, the reputation lanes over the masked stack, before the server
+    step reads it; then `server_step` over the mask, the telemetry (with
+    the corrupt-slot `flags`, [m] bool or None), under `--diagnostics` the
+    agent norms and (RLR on) the flat lr, and the health lanes over it.
+    Returns (new params, {fault_*, rep_*, tel_*, agent_norms, lr_flat and
+    hlth_* lanes})."""
     mask, info = None, {}
     if draw is not None:
         if cfg.corrupt_rate > 0:
@@ -226,14 +274,21 @@ def server_path(params, updates, sizes, cfg, noise=None, draw=None,
         mask = qmask if mask is None else mask & qmask
         if draw is not None:
             info["fault_voters"] = masking.count_f32(mask)
-    if cfg.telemetry == "off":
+    if lanes:
+        info.update(reputation.lanes(updates, mask))
+    if cfg.telemetry == "off" and not cfg.diagnostics:
         new_params = server_step(params, updates, sizes, cfg, noise, mask)
     else:
         lr, agg = server_terms(updates, sizes, cfg, noise, mask)
         new_params = apply_aggregate(params, lr, agg)
-        info.update(telemetry.compute(
-            cfg, updates, lr if cfg.robustLR_threshold > 0 else None, agg,
-            mask=mask, corrupt_flags=flags))
+        if cfg.telemetry != "off":
+            info.update(telemetry.compute(
+                cfg, updates, lr if cfg.robustLR_threshold > 0 else None,
+                agg, mask=mask, corrupt_flags=flags))
+        if cfg.diagnostics:
+            info["agent_norms"] = diagnostics.per_agent_norms(updates)
+            if cfg.robustLR_threshold > 0:
+                info["lr_flat"] = diagnostics.flat(lr)
     if health_sentinel.health_on(cfg):
         info.update(health_sentinel.sentinel(cfg, updates, new_params,
                                              mask=mask))
@@ -407,7 +462,11 @@ def _device_round(cfg, trainer, qset=None):
     round's FaultDraw or None, `data` as in `BlockTrainer.run`, `hits`
     and `flags` as `adversary_inputs` gives them; `qset` the quarantined
     ids on the device (health/sentinel.quarantine_set), matched against
-    `agents`, the sampled ids."""
+    `agents`, the sampled ids. With the reputation lanes on
+    (obs/reputation.reputation_on), the round's info holds rep_agree and
+    rep_norm ([m] each)."""
+    lanes = reputation.reputation_on(cfg)
+
     def device_round(params, agents, perms, keep, noise, draw=None,
                      data=None, hits=None, flags=None):
         ep_budget = (draw.ep_budget
@@ -419,7 +478,7 @@ def _device_round(cfg, trainer, qset=None):
         qmask = (None if qset is None
                  else health_sentinel.quarantine_mask(cfg, agents, qset))
         new_params, info = server_path(params, updates, sizes, cfg, noise,
-                                       draw, qmask, flags)
+                                       draw, qmask, flags, lanes)
         return new_params, {"train_loss": torch.mean(losses), **info}
     return device_round
 
@@ -566,9 +625,9 @@ def make_chained(round_fn):
     """chained(params, rng, n) -> (params, info): n rounds of round_fn with
     no host sync between them (on a CUDA device, n graph replays), the
     counterpart of JAX's `lax.scan` over a block of rounds. info["sampled"]
-    lists each round's ids; "train_loss", the hlth_* and tel_* lanes and
-    the FAULT_INFO_KEYS are stacked [n, ...], each round's copied out
-    before the next replay overwrites it."""
+    lists each round's ids; "train_loss", the hlth_*, tel_* and rep_*
+    lanes and the FAULT_INFO_KEYS are stacked [n, ...], each round's
+    copied out before the next replay overwrites it."""
     def chained(params, rng: RoundRNG, n: int):
         rows, sampled = [], []
         for _ in range(n):
@@ -576,7 +635,8 @@ def make_chained(round_fn):
             sampled.append(info["sampled"])
             rows.append({k: v.clone() for k, v in info.items()
                          if k == "train_loss"
-                         or k.startswith(("hlth_", telemetry.PREFIX))
+                         or k.startswith(("hlth_", telemetry.PREFIX,
+                                          reputation.PREFIX))
                          or k in FAULT_INFO_KEYS})
         out = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
         return params, {**out, "sampled": sampled}

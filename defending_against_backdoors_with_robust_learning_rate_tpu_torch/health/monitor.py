@@ -15,9 +15,11 @@ applies the policy:
              HealthIncident);
     record   warn loudly, write the rows, keep recording (the default).
 
-``recover`` (the ladder: discard, rollback, quarantine, halt) needs the
-checkpoint and the service plane and is refused as not ported yet, as
-JAX's ``--debug_nan`` (checkify, which forces ``abort`` there) is. A
+``recover`` (the ladder: discard, rollback, quarantine, halt) is armed by
+JAX's service driver alone (`service/driver.py:289-296`, inside `serve`),
+never by its one-shot trainer; it comes with the port's service plane and
+is refused as not ported yet, as JAX's ``--debug_nan`` (checkify, which
+forces ``abort`` there) is. A
 quarantine set given by hand (``--quarantine``) is ported: `check`
 validates it as JAX does, and the rounds take it through the
 participation mask (health/sentinel.quarantine_mask).
@@ -64,8 +66,9 @@ def check(cfg) -> None:
     if cfg.health_policy not in PORTED_POLICIES:
         raise ValueError(
             f"--health_policy {cfg.health_policy} (the recovery ladder: "
-            f"discard, rollback, quarantine, halt) is not ported yet; the "
-            f"port has {PORTED_POLICIES}")
+            f"discard, rollback, quarantine, halt) is not ported yet: it "
+            f"comes with the service plane (JAX service/driver.py arms it "
+            f"in serve); the port has {PORTED_POLICIES}")
 
 
 def resolve_policy(cfg) -> str:

@@ -38,8 +38,10 @@ sampled ids and the schedule gate, which every rank computes alike on the
 host, so the attack adds no collective; K2 then reads the scaled block.
 
 Not ported: the bucket layout, comed/trmean/krum/rfa (all_to_all), server
-noise, faults, churn, quarantine, tenants, buffered mode, diagnostics and
-telemetry (JAX obs/telemetry.compute_sharded, shard_vote_stats).
+noise, faults, churn, quarantine, tenants, buffered mode, diagnostics,
+telemetry (JAX obs/telemetry.compute_sharded, shard_vote_stats) and the
+reputation lanes (``--reputation on`` is refused; train.run resolves
+``auto`` off here and refuses checkpoints).
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds i
     RoundRNG, _fused_applicable, make_block_trainer, sample_agents)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     sentinel as health_sentinel)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
+    reputation)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.aggregate import (
     rlr_from_sign_sum)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.rlr_fused import (
@@ -203,6 +207,12 @@ def _check_sharded(cfg, group: AgentsGroup) -> int:
         raise ValueError(f"--telemetry {cfg.telemetry} on the sharded round "
                          f"is not ported yet (obs/telemetry.compute_sharded,"
                          f" shard_vote_stats)")
+    if cfg.reputation == "on":
+        raise ValueError(reputation.NOT_PORTED_SHARDED)
+    if cfg.diagnostics:
+        raise ValueError("--diagnostics on the sharded round is not ported "
+                         "yet (the diag round's explicit lr and agent norms "
+                         "over the agents group)")
     return m // d
 
 

@@ -1,27 +1,50 @@
 """The experiment driver: seed, data, rounds, eval every `snap` rounds.
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
-train.py` (`run`, `main`, the `RoundEngine` loop and its `_emit_eval_body`
-rows, `dispatch_schedule`); reference src/federated.py:21-95. The loop is
-the JAX one's without its checkpoints, async metrics or service hooks:
-it walks `dispatch_schedule`'s units, one round or a chained block of
-`--chain` rounds (fl/rounds.make_chained: on a card, that many graph
-replays with no host sync between them), and at each `snap` boundary the
-clean and poisoned val sets are evaluated and the reference's scalars
-written to metrics.jsonl, the boundary's one host sync. The boundary is
+train.py` (`run`, `main`, the `RoundEngine` loop, its `_emit_eval_body`
+rows, `_emit_diagnostics` and `save_checkpoint`, `dispatch_schedule`);
+reference src/federated.py:21-95. The loop is the JAX one's without its
+async metrics or service hooks: it walks `dispatch_schedule`'s units,
+one round or a chained block of `--chain` rounds (fl/rounds.make_chained:
+on a card, that many graph replays with no host sync between them), and
+at each `snap` boundary the clean and poisoned val sets are evaluated and
+the reference's scalars written to metrics.jsonl, the boundary's one host
+sync. The boundary is
 judged as JAX's `_emit_eval_body` judges it (train.py:1332-1370): the
 health monitor's `assess` over the health lanes and the params' finite
 bit, then `emit_rows` (the Health/* rows), then `enforce` (the policy:
 record warns, abort raises), the reference's rows and a faults run's
 Faults/* rows, then the Defense/* rows of `--telemetry` (JAX
 train.py:1287-1289, :1387-1389); the monitor's EMA state is committed
-last. Faults (`--dropout_rate`, `--straggler_rate`, `--corrupt_rate`,
+last; then the rounds' reputation rows since the last boundary are
+folded into the tracker (obs/reputation.py) and its Reputation/* rows
+written after the Defense/* rows (JAX train.py:1390-1410). Faults
+(`--dropout_rate`, `--straggler_rate`, `--corrupt_rate`,
 `--payload_norm_cap`) are drawn inside the round fns (fl/rounds.py), the
 corrupt-slot flags from the sampled ids; a `--quarantine` set is printed
 at the start (JAX train.py:208-211) and masked inside the round. The
 attack config is checked and its banner printed before anything is built
 (JAX train.py:212-216), and so is the telemetry's (:242-243); the slots
 the update attack hits are marked inside the round fns for each round.
+
+Checkpoint and resume (JAX train.py:826-856, :1483-1525): with
+--checkpoint_dir, every eval boundary saves the params, the round, the
+`RoundRNG` state, cum_poison_acc and cum_net_mov on the lead after its
+rows (utils/checkpoint.save, every checkpoint kept), then journals the
+metrics offset, the health EMA and, with the lanes on, the tracker's
+state. --resume restores the newest valid checkpoint before the first
+round (so the captured round starts from the restored params), the
+journal entry's EMA and tracker state, and starts `dispatch_schedule` at
+the restored round: a resumed run writes the uninterrupted run's params
+and rows, apart from `_run/start` and the Throughput/* rows, which count
+the rounds of this life.
+
+Diagnostics (--diagnostics, JAX train.py:340-342, :1217-1247): the snap
+rounds run a second round fn (fl/rounds.py: the plain server step, with
+the agent norms and the flat lr), dispatched unchained; before one runs,
+the params are cloned, and after it the Norms/* and Sign/* rows are
+written (the Fisher at the cloned params), before the boundary's rows.
+--train_layout megabatch degrades to vmap, with JAX's line.
 
 The run happens on `cfg.device` (default `cuda`). A run on `cuda` with no
 card raises; it never carries on on the CPU.
@@ -41,8 +64,11 @@ from `sample_ids` (a numpy generator seeded from the seed and the round,
 JAX's draw exactly), their shards are gathered into [m, ...] stacks and
 copied to the card (data/prefetch.HostGather), `--host_prefetch` rounds
 ahead on a worker thread (data/prefetch.RoundPrefetcher), and the round
-runs on them (fl/rounds.make_round_fn_host). A chained or sharded
-host-sampled round is not ported yet.
+runs on them (fl/rounds.make_round_fn_host). The units whose rounds
+capture a graph (the first, and the first diagnostics snap round) are
+gathered in line. A chained or sharded host-sampled round is not ported
+yet, nor are checkpoints, diagnostics or the reputation lanes on the
+sharded round (`--reputation auto` resolves off there).
 """
 
 from __future__ import annotations
@@ -65,6 +91,8 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.regist
     get_federated_data)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.common import (
     make_normalizer)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+    diagnostics)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.evaluate import (
     make_eval_fn, pad_eval_set)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
@@ -74,7 +102,7 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health impo
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.registry import (
     get_model, init_params, param_count)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
-    telemetry as obs_telemetry)
+    reputation as obs_reputation, telemetry as obs_telemetry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
     multihost)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.mesh import (
@@ -82,7 +110,7 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.me
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.rounds import (
     make_sharded_round_fn)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
-    compile_cache)
+    checkpoint as ckpt, compile_cache)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.guards import (
     all_finite_device)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
@@ -130,13 +158,15 @@ def sample_ids(cfg: Config, rnd: int) -> np.ndarray:
     return rng.choice(cfg.num_agents, cfg.agents_per_round, replace=False)
 
 
-def _host_units(cfg: Config, fed, device, units, stack, say):
+def _host_units(cfg: Config, fed, device, units, stack, say,
+                inline: int = 1):
     """get_unit(unit) -> the unit's gathered `Payload` in host-sampled
-    mode. The first unit is gathered in line: its round is the one whose
-    CUDA graph is captured, and no other thread may allocate or copy on
-    the card while a stream captures. From the second on, with
-    --host_prefetch N, a worker gathers up to N units ahead; `stack`
-    closes it."""
+    mode. The first `inline` units are gathered in line: their rounds are
+    the ones whose CUDA graphs are captured (the first unit's, and under
+    --diagnostics the first snap round's), and no other thread may
+    allocate or copy on the card while a stream captures. From the next
+    on, with --host_prefetch N, a worker gathers up to N units ahead;
+    `stack` closes it."""
     gather = HostGather(fed.train, device)
 
     def gather_unit(unit):
@@ -148,10 +178,10 @@ def _host_units(cfg: Config, fed, device, units, stack, say):
 
     def get_unit(unit):
         nonlocal prefetcher
-        if unit == units[0]:
+        if unit in units[:inline]:
             return gather_unit(unit)
         if prefetcher is None:
-            prefetcher = RoundPrefetcher(gather_unit, units[1:],
+            prefetcher = RoundPrefetcher(gather_unit, units[inline:],
                                          depth=cfg.host_prefetch)
             stack.callback(prefetcher.close)
         return prefetcher.get(unit)
@@ -181,6 +211,75 @@ def _agents_group(cfg: Config) -> Optional[AgentsGroup]:
     return None
 
 
+def _sharded_cfg(cfg: Config, say) -> Config:
+    """cfg for the sharded round: what it has not ported refused, and
+    `--reputation auto` resolved off, with a printed line."""
+    for flag, on in (("--diagnostics", cfg.diagnostics),
+                     ("--checkpoint_dir", bool(cfg.checkpoint_dir)),
+                     ("--resume", cfg.resume)):
+        if on:
+            raise ValueError(f"{flag} on the sharded round is not ported "
+                             f"yet; the dense, chained and host-sampled "
+                             f"rounds have it")
+    if cfg.reputation == "on":
+        raise ValueError(obs_reputation.NOT_PORTED_SHARDED)
+    if obs_reputation.reputation_on(cfg):
+        say("[reputation] the sharded round does not compute the lanes "
+            "(not ported yet): --reputation auto resolves off")
+        cfg = cfg.replace(reputation="off")
+    return cfg
+
+
+def _resolve_layout(cfg: Config, say) -> Config:
+    """--train_layout megabatch degrades to vmap under --diagnostics, with
+    JAX's line (compile_cache.resolved_train_layout is the rule)."""
+    resolved = compile_cache.resolved_train_layout(cfg)
+    if cfg.train_layout == resolved:
+        return cfg
+    say(f"[layout] --train_layout {cfg.train_layout} does not support "
+        f"--diagnostics (per-client loss curves need the per-client axis); "
+        f"degrading this run to --train_layout {resolved} — drop "
+        f"--diagnostics to keep the {cfg.train_layout} layout")
+    return cfg.replace(train_layout=resolved)
+
+
+def _emit_diagnostics(cfg: Config, writer, rnd: int, info, params, prev,
+                      fisher_fn, pval, cum_net_mov: float) -> float:
+    """A snap round's Norms/* and (RLR on) Sign/* rows (JAX
+    `_emit_diagnostics`): the Fisher at the params before the round
+    (`prev`), on the poisoned val set and on it relabeled to base_class;
+    returns the new cumulative net movement."""
+    norms = info["agent_norms"].cpu().numpy()
+    for tag, v in diagnostics.norm_scalars(norms, info["sampled"],
+                                           cfg.num_corrupt).items():
+        writer.scalar(tag, v, rnd)
+    if "lr_flat" not in info:
+        return cum_net_mov
+    f_adv = diagnostics.flat(fisher_fn(prev, *pval))
+    hon_labels = torch.full_like(pval[1], cfg.base_class)
+    f_hon = diagnostics.flat(fisher_fn(prev, pval[0], hon_labels, pval[2]))
+    upd = diagnostics.flat(params) - diagnostics.flat(prev)
+    scalars, cum_net_mov = diagnostics.sign_agreement(
+        *(t.cpu().numpy() for t in (info["lr_flat"], upd, f_adv, f_hon)),
+        cfg.top_frac, cfg.effective_server_lr, cum_net_mov)
+    for tag, v in scalars.items():
+        writer.scalar(tag, v, rnd)
+    return cum_net_mov
+
+
+def _fold_pending(tracker, pending) -> None:
+    """Fold the rounds' rep rows since the last boundary, in order: each
+    (round ids, sampled ids, rep_agree, rep_norm), one round's [m] rows
+    or a chained block's [n, m]."""
+    for rnds, ids, agrees, norms in pending:
+        agrees, norms = agrees.tolist(), norms.tolist()
+        if len(rnds) == 1:
+            tracker.fold(rnds[0], ids, agrees, norms)
+        else:
+            for j, r in enumerate(rnds):
+                tracker.fold(r, ids[j], agrees[j], norms[j])
+
+
 def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     """Train cfg.rounds rounds; returns the last boundary's summary (on
     every rank of a sharded run: its params and the run's count of
@@ -190,6 +289,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     # the attack config, loudly and before any build (attack/registry.py:
     # unknown strategy, bad boost, a schedule on a data-side strategy)
     attack_registry.check(cfg)
+    obs_reputation.check(cfg)
     if cfg.rlr_adapt == "on":
         raise ValueError(RLR_ADAPT_NOT_PORTED)
     if group is None:
@@ -198,6 +298,9 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
         cfg.device)
     lead = multihost.is_lead(group)
     say = print if lead else (lambda *a, **k: None)
+    if group is not None:
+        cfg = _sharded_cfg(cfg, say)
+    cfg = _resolve_layout(cfg, say)
     if lead:
         print_exp_details(cfg)
     if health_sentinel.has_quarantine(cfg):
@@ -222,8 +325,45 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
         f"on {device}")
     normalize = make_normalizer(fed.mean, fed.std, device,
                                 fed.raw_is_normalized)
+    rng = RoundRNG(cfg.seed, device)
+    # the per-client suspicion ledger, on the lead (the writer's process):
+    # the host fold of the rounds' rep_agree / rep_norm lanes
+    tracker = (obs_reputation.ReputationTracker.for_config(
+        cfg, population=cfg.num_agents)
+        if obs_reputation.reputation_on(cfg) and lead else None)
+    # the ground truth touches only the AUC row, never the ranking
+    rep_pred = ((lambda cid: cid < cfg.num_corrupt)
+                if cfg.num_corrupt > 0 else None)
+    if tracker is not None and tracker.sketch_mode:
+        say(f"[reputation] population {cfg.num_agents:,} > cap "
+            f"{cfg.rep_population_cap:,}: count-min sketch + "
+            f"top-{cfg.rep_topk} heavy-hitter ledger "
+            f"(O(cohort + k) RSS)")
+    start_round, cum_poison_acc, cum_net_mov = 0, 0.0, 0.0
+    health_ema = None
+    if cfg.resume and cfg.checkpoint_dir:
+        # before the first round, so the round is captured on these params
+        restored = ckpt.restore(cfg.checkpoint_dir, params)
+        if restored is not None:
+            (start_round, saved, rng_state, cum_poison_acc,
+             cum_net_mov) = restored
+            params = {k: saved[k].to(device) for k in params}
+            rng.load_state(rng_state)
+            # the health EMA and the suspicion ledger ride the journal
+            # entry of the round restored
+            for entry in ckpt.journal_read(cfg.checkpoint_dir):
+                if entry["round"] == start_round:
+                    health_ema = entry.get("health") or None
+                    if tracker is not None:
+                        tracker.load_state(entry.get("reputation") or None)
+            say(f"[ckpt] resumed from round {start_round}")
     chain_n = compile_cache.chain_budget(cfg)
     host_mode = compile_cache.is_host_mode(cfg, fed)
+    # the snap rounds of --diagnostics run a second round fn, with the
+    # plain server step and the diagnostics' extras; every other round
+    # runs the round fn of cfg without them (JAX's plain/diag pair)
+    plain_cfg = cfg.replace(diagnostics=False)
+    diag_fn = None
     if host_mode:
         if chain_n > 1:
             raise ValueError(CHAINED_HOST_NOT_PORTED)
@@ -232,12 +372,14 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                              "yet")
         say(f"[data] host-sampled mode "
             f"({fed.train.images.nbytes / 2**30:.1f} GiB of shards)")
-        round_fn = make_round_fn_host(cfg, model, normalize, fed.train.sizes,
+        def build(c):
+            return make_round_fn_host(c, model, normalize, fed.train.sizes,
                                       fed.train.max_n, device)
     elif group is None:
         images = torch.from_numpy(fed.train.images).to(device)
         labels = torch.from_numpy(fed.train.labels).to(device, torch.int64)
-        round_fn = make_round_fn(cfg, model, normalize, images, labels,
+        def build(c):
+            return make_round_fn(c, model, normalize, images, labels,
                                  fed.train.sizes)
     elif chain_n > 1:
         raise ValueError("--chain > 1 on the sharded round is not ported "
@@ -253,11 +395,21 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
         round_fn = make_sharded_round_fn(cfg, model, normalize, group,
                                          images, labels, fed.train.sizes)
     if group is None:
+        round_fn = build(plain_cfg)
+        diag_fn = build(cfg) if cfg.diagnostics else None
+    if group is None:
         say(f"[train] layout {compile_cache.resolved_train_layout(cfg)}, "
             f"agent chunk {cfg.agent_chunk or 'all'}, round "
             + ("captured as one CUDA graph" if round_fn.graph is not None
                else "eager"))
+    if diag_fn is not None:
+        say("[diagnostics] snap rounds run the plain server step (the "
+            "explicit lr vector)"
+            + (" as a second CUDA graph" if diag_fn.graph is not None
+               else "") + "; the other rounds keep the fused kernel")
     eval_fn = make_eval_fn(model, normalize, cfg.n_classes)
+    fisher_fn = (diagnostics.make_fisher_fn(model, normalize)
+                 if cfg.diagnostics else None)
     val, pval = (tuple(torch.from_numpy(a).to(device)
                        for a in pad_eval_set(x, y, cfg.eval_bs))
                  for x, y in ((fed.val_images, fed.val_labels),
@@ -265,35 +417,64 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     chained = make_chained(round_fn) if chain_n > 1 else None
     if chained is not None:
         say(f"[chain] {chain_n} rounds per dispatch")
-    units = dispatch_schedule(0, cfg.rounds, cfg.snap, chain_n, False,
-                              chained is not None)
-    rng = RoundRNG(cfg.seed, device)
+    units = dispatch_schedule(start_round, cfg.rounds, cfg.snap, chain_n,
+                              cfg.diagnostics, chained is not None)
+
+    def diag_unit(unit):
+        return diag_fn is not None and unit[0] % cfg.snap == 0
     summary: Dict = {}
-    cum_poison_acc = 0.0
-    health_ema = None
+    rounds_done = 0
+    rep_pending = []
     with (MetricsWriter(cfg.log_dir, run_name(cfg), cfg.tensorboard)
           if lead else contextlib.nullcontext()) as writer, \
             contextlib.ExitStack() as stack:
         if host_mode:
-            get_unit = _host_units(cfg, fed, device, units, stack, say)
+            # gathered in line up to the first snap round of --diagnostics:
+            # its round fn's graph is captured there
+            inline = 1 + next((i for i, u in enumerate(units)
+                               if diag_unit(u)), 0)
+            get_unit = _host_units(cfg, fed, device, units, stack, say,
+                                   inline)
         _sync(device)
         t_loop = time.perf_counter()
         t_steady = r_steady = None
         for unit in units:
+            want_diag = diag_unit(unit)
             if len(unit) > 1:
                 params, stacked = chained(params, rng, len(unit))
                 info = {k: v[-1] for k, v in stacked.items()}
-            elif host_mode:
-                params, info = round_fn(params, rng, *get_unit(unit).ready())
+                if tracker is not None:
+                    rep_pending.append((unit, stacked["sampled"],
+                                        stacked["rep_agree"],
+                                        stacked["rep_norm"]))
             else:
-                params, info = round_fn(params, rng)
+                fn = diag_fn if want_diag else round_fn
+                # the Fisher is taken at the params before the round, which
+                # a replay overwrites
+                prev = ({k: v.clone() for k, v in params.items()}
+                        if want_diag else None)
+                if host_mode:
+                    params, info = fn(params, rng, *get_unit(unit).ready())
+                else:
+                    params, info = fn(params, rng)
+                if tracker is not None:
+                    # a replay's outputs are the graph's buffers: copied
+                    # out on the device, fetched at the boundary
+                    rep_pending.append((unit, info["sampled"],
+                                        info["rep_agree"].clone(),
+                                        info["rep_norm"].clone()))
             rnd = unit[-1]
+            rounds_done += len(unit)
             if t_steady is None:
                 # the first dispatch pays the one-off costs (kernel build,
                 # cuDNN plans, allocator growth, the round's capture);
                 # steady time starts after it
                 _sync(device)
-                t_steady, r_steady = time.perf_counter(), rnd
+                t_steady, r_steady = time.perf_counter(), rounds_done
+            if want_diag and lead:
+                cum_net_mov = _emit_diagnostics(cfg, writer, rnd, info,
+                                                params, prev, fisher_fn,
+                                                pval, cum_net_mov)
             if rnd % cfg.snap or not lead:
                 continue
             finite = all_finite_device(params)
@@ -334,9 +515,16 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             for tag, value in fault_rows(vals).items():
                 writer.scalar(tag, value, rnd)
             obs_telemetry.emit_scalars(writer, vals, rnd)
-            writer.scalar("Throughput/Rounds_Per_Sec", rnd / elapsed, rnd)
-            steady = ((rnd - r_steady) / (now - t_steady) if rnd > r_steady
-                      else None)
+            if tracker is not None:
+                _fold_pending(tracker, rep_pending)
+                rep_pending = []
+                obs_reputation.emit_rows(writer, tracker, rnd, rep_pred)
+            # the rounds of this life (a resumed run counts from its
+            # restore), as JAX's rounds_done
+            writer.scalar("Throughput/Rounds_Per_Sec", rounds_done / elapsed,
+                          rnd)
+            steady = ((rounds_done - r_steady) / (now - t_steady)
+                      if rounds_done > r_steady else None)
             if steady is not None:
                 writer.scalar("Throughput/Steady_Rounds_Per_Sec", steady, rnd)
             writer.flush()
@@ -344,12 +532,24 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                   f"{vals['val_acc']:.3f} |")
             print(f"| Rnd {rnd}: Poison Loss/Poison Acc: "
                   f"{vals['poison_loss']:.3f} / {vals['poison_acc']:.3f} |")
-            summary = {"round": rnd, "rounds_per_sec": rnd / elapsed,
+            summary = {"round": rnd, "rounds_per_sec": rounds_done / elapsed,
                        "steady_rounds_per_sec": steady, **vals}
             defense = obs_telemetry.host_summary(vals)
             if defense:
                 summary["defense"] = defense
+            if tracker is not None:
+                summary["suspicion"] = tracker.summary(rep_pred)
             health_ema = report["new_state"]
+            if cfg.checkpoint_dir:
+                # after the boundary's rows and state; the one-shot
+                # trainer keeps every checkpoint (JAX's keep of 0)
+                ckpt.save(cfg.checkpoint_dir, rnd, params, rng.state_dict(),
+                          cum_poison_acc, cum_net_mov)
+                extra = {"health": health_ema}
+                if tracker is not None:
+                    extra["reputation"] = tracker.state_dict()
+                ckpt.journal_record(cfg.checkpoint_dir, rnd, writer.offset(),
+                                    **extra)
     say("Training has finished!")
     if summary:
         steady = summary["steady_rounds_per_sec"]
@@ -358,6 +558,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             + (f"; {steady:.3f} steady, after the first dispatch"
                if steady is not None else ""))
     summary["params"] = params
+    summary["cum_net_mov"] = cum_net_mov
     summary["all_reduces"] = group.calls if group is not None else 0
     return summary
 

@@ -32,20 +32,23 @@ DEVICE_RESIDENT_BYTES = 2 << 30
 
 
 def resolved_train_layout(cfg) -> str:
-    """The local-training layout (config.TRAIN_LAYOUTS). JAX degrades
-    megabatch to vmap under --diagnostics, which the port does not have."""
+    """The local-training layout (config.TRAIN_LAYOUTS): megabatch
+    degrades to vmap under --diagnostics, as JAX's does (the snap and
+    off-snap rounds must run one layout; train.run prints JAX's line)."""
     if cfg.train_layout not in TRAIN_LAYOUTS:
         raise ValueError(f"train_layout must be one of {TRAIN_LAYOUTS}, "
                          f"got {cfg.train_layout!r}")
+    if cfg.train_layout == "megabatch" and cfg.diagnostics:
+        return "vmap"
     return cfg.train_layout
 
 
 def chain_budget(cfg) -> int:
     """Rounds per dispatch: --chain capped at --snap, so a chained block
-    never crosses an eval boundary (JAX's budget without diagnostics, which
-    the port does not have; a chained host-sampled round is not ported,
-    and train.run refuses --chain > 1 there)."""
-    return max(1, min(cfg.chain, cfg.snap))
+    never crosses an eval boundary, and at snap - 1 under --diagnostics,
+    whose snap rounds run unchained (JAX's budget; a chained host-sampled
+    round is not ported, and train.run refuses --chain > 1 there)."""
+    return max(1, min(cfg.chain, cfg.snap - (1 if cfg.diagnostics else 0)))
 
 
 def is_host_mode(cfg, fed) -> bool:

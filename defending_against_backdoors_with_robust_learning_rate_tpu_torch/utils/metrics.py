@@ -4,7 +4,9 @@ Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 utils/metrics.py` (`run_name`, `MetricsWriter`). The scalar tags are the
 reference's TensorBoard names (src/federated.py:81-91); each row is
 {"tag", "value", "step"}, and every run opens with a `_run/start` record,
-so reruns of one config can append to one file and still be split.
+so reruns of one config can append to one file and still be split (a
+resumed run appends too, after its own `_run/start`; `offset` gives the
+byte offset the checkpoint journal records).
 metrics.jsonl is always written; the same scalars also go to a TensorBoard
 event file in the run dir (torch.utils.tensorboard.SummaryWriter), as the
 JAX writer does, unless `--no_tensorboard` is given or that module does
@@ -83,6 +85,12 @@ class MetricsWriter:
         self._jsonl = open(self.jsonl_path, "a")
         self._jsonl.write(json.dumps(
             {"tag": "_run/start", "value": time.time(), "step": -1}) + "\n")
+
+    def offset(self) -> int:
+        """The flushed byte offset of metrics.jsonl: what the checkpoint
+        journal records at a save (utils/checkpoint.py)."""
+        self._jsonl.flush()
+        return self._jsonl.tell()
 
     def scalar(self, tag: str, value, step: int) -> None:
         self._jsonl.write(json.dumps(

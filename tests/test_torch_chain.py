@@ -131,8 +131,12 @@ def test_chain_run_matches_unchained_and_sharded(tmp_path):
                                        atol=1e-5, rtol=1e-5, err_msg=k)
     sharded = {r["tag"]: r["value"] for r in _rows(tmp_path / "sharded")
                if r["step"] == 4 and r["tag"] not in SPEED}
+    # the sharded round does not compute the reputation lanes (auto
+    # resolves off there), so the dense run's Reputation/* rows have no
+    # sharded twin
     dense = {r["tag"]: r["value"] for r in rows1
-             if r["step"] == 4 and r["tag"] not in SPEED}
+             if r["step"] == 4 and r["tag"] not in SPEED
+             and not r["tag"].startswith("Reputation/")}
     assert set(sharded) == set(dense)
     for tag, value in dense.items():
         np.testing.assert_allclose(sharded[tag], value, rtol=1e-4, atol=1e-6,

@@ -38,6 +38,13 @@ HEALTH_TAGS = {"Health/Nonfinite_Updates", "Health/Params_Finite",
 # and from the second boundary on, the steady rate after the first dispatch
 # (JAX train.py: Throughput/Steady_Rounds_Per_Sec)
 STEADY_TAG = "Throughput/Steady_Rounds_Per_Sec"
+# and, with a sign vote (the RLR threshold here), the Reputation/* rows
+# JAX's obs/reputation.emit_rows writes: 4 clients tracked, 1 corrupt
+REPUTATION_TAGS = {
+    "Reputation/Clients_Tracked", "Reputation/Mean_Agree",
+    "Reputation/Min_Agree", "Reputation/Suspect_Count",
+    "Reputation/Top_Suspect_Score", "Reputation/Suspicion_AUC",
+    *(f"Reputation/Top_Suspects/{i}" for i in range(4))}
 
 
 def test_cli_two_rounds_writes_reference_tags(tmp_path, capsys):
@@ -64,7 +71,7 @@ def test_cli_two_rounds_writes_reference_tags(tmp_path, capsys):
     assert rows[0]["tag"] == "_run/start"
     for step in (1, 2):
         got = {r["tag"] for r in rows if r["step"] == step}
-        assert got == (REFERENCE_TAGS | HEALTH_TAGS
+        assert got == (REFERENCE_TAGS | HEALTH_TAGS | REPUTATION_TAGS
                        | ({STEADY_TAG} if step > 1 else set())), step
     health = {r["tag"]: r["value"] for r in rows if r["step"] == 2
               and r["tag"] in HEALTH_TAGS}
