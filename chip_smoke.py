@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives the port (`defending_against_backdoors_with_robust_learning_rate_tpu_torch`,
-never the JAX package) through sixteen phases and exits non-zero if any
+never the JAX package) through seventeen phases and exits non-zero if any
 fails (`--phases a,b` runs the build and just those phases, a rehearsal
 that prints no result lines):
 
@@ -153,11 +153,31 @@ that prints no result lines):
     server step; finite Norms/* and Sign/* rows); the Fisher on the card
     against the CPU for the same params (FISHER_TOL), timed; one
     checkpoint save, timed.
+17. population: the population axis on the FMNIST stand-in at full
+    width (60,000 / 10,000 at 28x28x1, CNN_MNIST, bs 256, 2 local
+    epochs), cuDNN deterministic, each run counted as above: the
+    README's 1M-client dirichlet(0.5) bank built serially and with 2
+    spawned workers (content_sha equal), reopened with --bank_verify,
+    its build seconds, bytes and one 256-client gather's time; the
+    README run (1M clients, 256-client cohorts, --agent_chunk 64) for 4
+    rounds at --chain 2 and at --chain 1 (params bit for bit, one
+    captured graph each, K1 never: the cohort round carries its active
+    mask); the same at 100k clients (peak device memory within 1% of the
+    1M run's); churn 0.1 with diurnal traffic at 1M (the 3-chunk draw,
+    every member present, Churn/Sampled_Away the shortfall, rows
+    finite); an attack at 1M (10,000 corrupt, RLR 8, full telemetry: the
+    cosine split follows the active corrupt members, the tracker in
+    sketch mode; with dropout 1.0 sparing the attackers the electorate
+    is exactly them); the equal cohort (K = m = 10, label_shards: bank
+    rows == dense rows, 2 cohort rounds == the dense round on the same
+    ids, bit for bit); the chained host round (Fed-EMNIST host-sampled,
+    4 rounds at --chain 2 == --chain 1 bit for bit, K1 once a round).
 
 The last two lines of standard output are one JSON object per kernel
 (`{"kernels": [...]}`; K1's `launches` counts every main-path run of
-phases 5, 10, 11, 13, 14, 15 and 16, by path in `launches_by_path`
-(phase 13's paths at 0: their server step is the plain one), `shapes`
+phases 5, 10, 11, 13, 14, 15, 16 and 17, by path in `launches_by_path`
+(phase 13's paths and phase 17's `population` at 0: their server step
+is the plain one; phase 17's `chain host` once a round), `shapes`
 holds phase 12's timings and `attack_stacks` phase 14's; K2's counts the
 sharded run's and the signflip round's) and `{"ok": true, "device":
 {...}}`. Without a CUDA device it exits with 1 before printing any
@@ -1080,6 +1100,7 @@ def drive(rlr_fused, what, cfg, k1: bool = True, ran=None, k1_expect=None,
     for k in rlr_fused.LAUNCHES:
         rlr_fused.LAUNCHES[k] = 0
     compile_cache.GRAPH_REPLAYS["round"] = 0
+    compile_cache.GRAPH_CAPTURES["round"] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()    # by the phases before this run
@@ -1089,6 +1110,7 @@ def drive(rlr_fused, what, cfg, k1: bool = True, ran=None, k1_expect=None,
     s["seconds"] = time.perf_counter() - t0
     s["launches"] = rlr_fused.LAUNCHES["rlr_fused"]
     s["replays"] = compile_cache.GRAPH_REPLAYS["round"]
+    s["captures"] = compile_cache.GRAPH_CAPTURES["round"]
     s["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     steady = s["steady_rounds_per_sec"]
     log(f"[{what}] {s['rounds_per_sec']:.3f} rounds/s with eval "
@@ -2843,6 +2865,296 @@ def phase_state(rlr_fused, record, st) -> None:
     log(f"[state] phase time {time.perf_counter() - t_phase:.1f} s")
 
 
+POP_DIR = "build/chip_smoke/population"
+# the cohort trains in groups of 64 agents: 64 x 256 rows at once keeps
+# the batched step's activations near 15 GB of the card's 80
+POP_CHUNK = 64
+POP_PEAK_TOL = 0.01         # 100k run's peak device memory vs the 1M run's
+
+
+def population_cfg(**kw):
+    """The README's population run ("Population scaling") on the FMNIST
+    stand-in at full width: 1M clients in a dirichlet(0.5) bank, 256-client
+    cohorts, 2 local epochs at bs 256 (each client's 16 samples padded to
+    one batch), FedAvg, the bank under POP_DIR."""
+    return triple()["clean"].replace(
+        num_agents=1_000_000, cohort_size=256, partitioner="dirichlet",
+        dirichlet_alpha=0.5, agent_chunk=POP_CHUNK, rounds=4, snap=2,
+        bank_dir=f"{POP_DIR}/bank_1m", log_dir=f"{POP_DIR}/logs").replace(
+            **kw)
+
+
+def pop_rows(cfg):
+    """{(tag, step): value} of cfg's run (one life)."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
+        run_name)
+    with open(os.path.join(cfg.log_dir, run_name(cfg), "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {(r["tag"], r["step"]): r["value"] for r in rows
+            if not r["tag"].startswith("_run/")}
+
+
+def phase_population(rlr_fused, record) -> None:
+    """The population axis (slice 9), each run through `train.run` counted
+    as `drive` counts it, cuDNN deterministic:
+
+    1. the 1M-client dirichlet(0.5) bank built serially and with 2
+       spawned workers (content_sha equal), reopened with --bank_verify;
+       its build seconds, bytes on disk and one 256-client gather's time;
+    2. the README run (1M clients, --cohort_size 256): 4 rounds at
+       --chain 2 and at --chain 1, params bit for bit, one captured graph
+       each, K1 0 launches (the cohort round carries its active mask);
+    3. the same at 100k clients: peak device memory within 1% of the 1M
+       run's;
+    4. churn 0.1 and diurnal traffic at 1M (the 3-chunk draw): every
+       member present, Churn/Sampled_Away counting only the shortfall,
+       every row finite;
+    5. an attack at 1M (10,000 corrupt, poison 0.5, RLR 8, --telemetry
+       full): the cosine split follows each round's active corrupt
+       members, the tracker in sketch mode; with --dropout_rate 1.0
+       --faults_spare_corrupt the electorate is exactly those members;
+    6. the equal cohort (FMNIST attack + RLR 4, K = m = 10,
+       label_shards): the bank rows equal the dense stacks', and 2
+       cohort rounds equal the dense round given the same ids, plain
+       server step on both sides, bit for bit;
+    7. the chained host round: Fed-EMNIST host-sampled attack + RLR 8, 4
+       rounds at --chain 2 against --chain 1, params bit for bit, K1 once
+       a round."""
+    import shutil
+
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+        bank as bank_mod, cohort, registry, traffic)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.service import (
+        churn)
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    shutil.rmtree(POP_DIR, ignore_errors=True)
+    cfg = population_cfg()
+
+    # 1. the bank: serial, 2 workers, reopened and verified
+    train_ds, _, _ = registry.get_datasets(cfg)
+    kw = dict(population=cfg.num_agents, partitioner=cfg.partitioner,
+              samples_per_client=cfg.samples_per_client,
+              dirichlet_alpha=cfg.dirichlet_alpha,
+              classes_per_client=cfg.classes_per_client, seed=cfg.seed,
+              n_classes=cfg.n_classes, shard_clients=cfg.bank_shard_clients)
+    built = {}
+    for label, workers in (("serial", 1), ("2 workers", 2)):
+        path = cfg.bank_dir + ("" if workers == 1 else "_w2")
+        t0 = time.perf_counter()
+        bank, fresh = bank_mod.get_or_build(path, train_ds.labels,
+                                            workers=workers, log=log, **kw)
+        built[label] = (bank, time.perf_counter() - t0)
+        assert fresh
+    (serial, t_serial), (par, t_par) = built["serial"], built["2 workers"]
+    if (serial.meta["content_sha"] != par.meta["content_sha"]
+            or not np.array_equal(serial.offsets, par.offsets)):
+        raise AssertionError("the 2-worker bank is not the serial one")
+    t0 = time.perf_counter()
+    reopened, fresh = bank_mod.get_or_build(cfg.bank_dir, train_ds.labels,
+                                            verify=True, log=log, **kw)
+    t_verify = time.perf_counter() - t0
+    if fresh or reopened.meta != serial.meta:
+        raise AssertionError("the reopened bank was rebuilt")
+    nbytes = sum(os.path.getsize(os.path.join(cfg.bank_dir, f))
+                 for f in os.listdir(cfg.bank_dir))
+    ids, _ = cohort.sample_cohort(cfg, 1)
+    max_n = serial.padded_max_n(cfg.bs)
+    gather_s = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        serial.gather(ids, train_ds.images, train_ds.labels, max_n)
+        gather_s.append(time.perf_counter() - t0)
+    log(f"[population] bank: {cfg.num_agents:,} clients dirichlet("
+        f"{cfg.dirichlet_alpha}), {serial.meta['samples_per_client']} "
+        f"samples a client, {serial.meta['n_shards']} shard files, "
+        f"{nbytes / 1e6:.1f} MB on disk; built serially in {t_serial:.2f} s, "
+        f"with 2 workers in {t_par:.2f} s (content_sha "
+        f"{serial.meta['content_sha'][:16]} both); reopened and verified "
+        f"in {t_verify:.2f} s; one {len(ids)}-client gather ([{len(ids)}, "
+        f"{max_n}, 28, 28, 1] uint8) median "
+        f"{statistics.median(gather_s) * 1e3:.2f} ms (min "
+        f"{min(gather_s) * 1e3:.2f}) on the host")
+
+    strict = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    _strict_numerics()
+    runs = {}
+    try:
+        # 2. the README run, chained and not
+        for chain in (2, 1):
+            c = cfg.replace(chain=chain, bank_verify=chain == 1,
+                            log_dir=f"{POP_DIR}/logs_c{chain}")
+            runs[f"1m chain {chain}"] = drive(
+                rlr_fused, f"population 1M chain {chain}", c, k1=False)
+        # 3. a tenth of the population
+        runs["100k"] = drive(rlr_fused, "population 100k", cfg.replace(
+            num_agents=cfg.num_agents // 10,
+            bank_dir=f"{POP_DIR}/bank_100k", rounds=2,
+            log_dir=f"{POP_DIR}/logs_100k"), k1=False)
+        # 4. churn and diurnal traffic at 1M
+        churned = cfg.replace(churn_available=0.1, traffic="diurnal",
+                              rounds=2, snap=1,
+                              log_dir=f"{POP_DIR}/logs_churn")
+        runs["churn"] = drive(rlr_fused, "population 1M churn + diurnal",
+                              churned, k1=False)
+        # 5. an attack at 1M, then its electorate alone
+        attack = cfg.replace(num_corrupt=10_000, poison_frac=0.5,
+                             robustLR_threshold=8, telemetry="full",
+                             rounds=2, snap=1,
+                             log_dir=f"{POP_DIR}/logs_attack")
+        runs["attack"] = drive(rlr_fused, "population 1M attack", attack,
+                               k1=False)
+        electorate = attack.replace(dropout_rate=1.0,
+                                    faults_spare_corrupt=True,
+                                    log_dir=f"{POP_DIR}/logs_electorate")
+        runs["electorate"] = drive(rlr_fused, "population 1M electorate",
+                                   electorate, k1=False)
+        # 6. the equal cohort against the dense round
+        equal = equal_cohort_check(triple()["attack_rlr4"].replace(
+            cohort_sampled="on", cohort_size=10, partitioner="label_shards",
+            use_fused=False, bank_dir=f"{POP_DIR}/bank_10"))
+        # 7. the chained host round
+        host = fedemnist_triple()["attack_rlr8"].replace(
+            host_sampled="on", host_prefetch=2, rounds=4, snap=2)
+        for chain in (2, 1):
+            runs[f"host chain {chain}"] = drive(
+                rlr_fused, f"fedemnist host chain {chain}", host.replace(
+                    chain=chain, log_dir=f"{POP_DIR}/logs_host_c{chain}"))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = strict
+
+    for label, s in runs.items():
+        if s["captures"] != 1:
+            raise AssertionError(f"{label}: {s['captures']} graphs captured")
+    for a, b in (("1m chain 2", "1m chain 1"), ("host chain 2",
+                                                "host chain 1")):
+        if not same_params(runs[a]["params"], runs[b]["params"]):
+            gap = max(float((runs[a]["params"][k] - v).abs().max())
+                      for k, v in runs[b]["params"].items())
+            raise AssertionError(f"{a} vs {b}: params differ by {gap:.3e}")
+    log(f"[population] {cfg.num_agents:,} clients, 4 rounds: --chain 2 == "
+        f"--chain 1, params bit for "
+        f"bit, one captured graph each, K1 0 launches; Fed-EMNIST host: "
+        f"--chain 2 == --chain 1 bit for bit, K1 once a round "
+        f"({runs['host chain 2']['launches']} + "
+        f"{runs['host chain 1']['launches']})")
+    p1m, p100k = runs["1m chain 1"]["peak_gib"], runs["100k"]["peak_gib"]
+    log(f"[population] peak device memory ({name}): 1M clients "
+        f"{p1m:.3f} GiB, 100k {p100k:.3f} GiB (chain 2: "
+        f"{runs['1m chain 2']['peak_gib']:.3f} GiB); steady rounds/s 1M "
+        f"{runs['1m chain 1']['steady_rounds_per_sec']:.4f} (chain 2 "
+        f"{runs['1m chain 2']['steady_rounds_per_sec']:.4f}), 100k "
+        f"{runs['100k']['steady_rounds_per_sec']:.4f}")
+    if abs(p100k - p1m) > POP_PEAK_TOL * p1m:
+        raise AssertionError(f"peak memory 100k {p100k:.3f} vs 1M "
+                             f"{p1m:.3f} GiB")
+
+    # 4: members present, the away count the shortfall, rows finite
+    per_chunk, n_chunks = cohort.draw_plan(churned)
+    rows = pop_rows(churned)
+    if not all(math.isfinite(v) for v in rows.values()):
+        raise AssertionError("a non-finite row under churn")
+    away = []
+    for rnd in (1, 2):
+        ids, active = cohort.sample_cohort(churned, rnd)
+        if not (churn.active_slots(churned, ids[active], rnd).all()
+                and traffic.present_slots(churned, ids[active], rnd).all()):
+            raise AssertionError(f"round {rnd}: an absent member")
+        away.append(rows[("Churn/Sampled_Away", rnd)])
+        if away[-1] != float((~active).sum()):
+            raise AssertionError(f"round {rnd}: Churn/Sampled_Away "
+                                 f"{away[-1]} vs {(~active).sum()} padding")
+    log(f"[population] churn 0.1 + diurnal at {churned.num_agents:,}: "
+        f"{cohort.oversample_count(churned):,} candidates drawn in "
+        f"{n_chunks} chunk(s) of {per_chunk:,}, every member "
+        f"churn- and traffic-present, Churn/Sampled_Away {away} (the "
+        f"shortfall), {len(rows)} rows finite")
+
+    # 5: the cosine split and the electorate follow the active corrupt
+    # members; the tracker folds real ids in sketch mode
+    rows, erows = pop_rows(attack), pop_rows(electorate)
+    members = []
+    for rnd in (1, 2):
+        ids, active = cohort.sample_cohort(attack, rnd)
+        n = int(((ids < attack.num_corrupt) & active).sum())
+        members.append(n)
+        cos = rows[("Defense/Cosine_Corrupt_To_Agg", rnd)]
+        voters = erows[("Faults/Effective_Voters", rnd)]
+        if (cos != 0.0) != (n > 0) or (voters != n if n else voters > 1):
+            raise AssertionError(f"round {rnd}: {n} corrupt members, "
+                                 f"cosine {cos}, electorate {voters}")
+    mode = runs["attack"]["suspicion"]["mode"]
+    if mode != "sketch":
+        raise AssertionError(f"the tracker in {mode} mode at 1M")
+    log(f"[population] attack at 1M: active corrupt members per round "
+        f"{members}, Defense/Cosine_Corrupt_To_Agg "
+        f"{[round(rows[('Defense/Cosine_Corrupt_To_Agg', r)], 4) for r in (1, 2)]}, "
+        f"electorate with dropout 1.0 sparing them "
+        f"{[erows[('Faults/Effective_Voters', r)] for r in (1, 2)]}; "
+        f"reputation tracker in {mode} mode, "
+        f"{runs['attack']['suspicion']['clients']} clients tracked")
+    log(f"[population] equal cohort (K = m = 10, label_shards, rounds "
+        f"{equal}): bank rows == dense rows, cohort round == dense round "
+        f"bit for bit")
+    record["launches_by_path"]["population"] = sum(
+        s["launches"] for k, s in runs.items() if not k.startswith("host"))
+    record["launches_by_path"]["chain host"] = sum(
+        s["launches"] for k, s in runs.items() if k.startswith("host"))
+    log(f"[population] phase time {time.perf_counter() - t_phase:.1f} s")
+
+
+def equal_cohort_check(cfg):
+    """The equal cohort (JAX bench.py:845-851): at K = m with label_shards
+    the cohort's bank rows are the dense stacks' rows, and the cohort round
+    equals the dense round given the same ids, both eager with the plain
+    server step, bit for bit, over the first 2 rounds whose cohort is
+    whole. Returns those rounds."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+        cohort, registry)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        common, rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry as models)
+
+    dense_cfg = cfg.replace(cohort_sampled="off")
+    fed = registry.get_federated_data(dense_cfg)
+    src = registry.get_cohort_data(cfg)
+    model = models.get_model(cfg.data, cfg.image_shape)
+    norm = common.make_normalizer(fed.mean, fed.std, DEVICE)
+    images = torch.from_numpy(fed.train.images).to(DEVICE)
+    labels = torch.from_numpy(fed.train.labels).to(DEVICE, torch.int64)
+    dense = rounds.make_round_fn(dense_cfg, model, norm, images, labels,
+                                 fed.train.sizes, capture=False)
+    coh = rounds.make_cohort_round_fn(cfg, model, norm, src.max_n, DEVICE,
+                                      capture=False)
+    p_dense = p_coh = models.init_params(model, cfg.seed, DEVICE)
+    full = [r for r in range(1, 100)
+            if cohort.sample_cohort(cfg, r)[1].all()][:2]
+    for rnd in full:
+        ids, active = cohort.sample_cohort(cfg, rnd)
+        rows = src.gather_cohort(ids)
+        for got, want in zip(rows, (fed.train.images[ids],
+                                    fed.train.labels[ids],
+                                    fed.train.sizes[ids]), strict=True):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"round {rnd}: bank rows differ")
+        rng_d, rng_c = (rounds.RoundRNG(cfg.seed, DEVICE) for _ in "dc")
+        rng_d.round = rng_c.round = rnd - 1
+        p_dense, _ = dense(p_dense, rng_d, sampled=ids.tolist())
+        dev = [torch.from_numpy(a).to(DEVICE) for a in rows]
+        p_coh, _ = coh(p_coh, rng_c, ids, dev[0], dev[1].to(torch.int64),
+                       dev[2], active, rows[2])
+        if not same_params(p_coh, p_dense):
+            gap = max(float((p_coh[k] - v).abs().max())
+                      for k, v in p_dense.items())
+            raise AssertionError(f"round {rnd}: cohort round vs dense "
+                                 f"round {gap:.3e}")
+    return full
+
+
 # every config field the federated data's build reads (data/registry.py,
 # attack/dba.py, attack/patterns.py)
 DATA_FIELDS = ("data", "data_dir", "num_agents", "num_corrupt", "poison_frac",
@@ -2862,14 +3174,27 @@ def keep_federated_data() -> None:
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
         registry)
     build, kept = registry.get_federated_data, {}
+    datasets, raw = registry.get_datasets, {}
 
     def get_federated_data(cfg):
         key = tuple(getattr(cfg, f) for f in DATA_FIELDS)
         if key not in kept:
             kept[key] = build(cfg)
         return kept[key]
+
+    def get_datasets(cfg):
+        # the base dataset of the cohort runs' banks: read, never written
+        # (the cohort's rows are gathered and poisoned on copies)
+        if cfg.data == "fedemnist":
+            return datasets(cfg)
+        key = (cfg.data, cfg.data_dir, cfg.synth_train_size,
+               cfg.synth_val_size, cfg.synth_hardness, cfg.seed)
+        if key not in raw:
+            raw[key] = datasets(cfg)
+        return raw[key]
     registry.get_federated_data = train.get_federated_data = (
         get_federated_data)
+    registry.get_datasets = get_datasets
 
 
 def main(argv=None) -> int:
@@ -2924,7 +3249,8 @@ def main(argv=None) -> int:
               ("rules", lambda: phase_rules(rlr_fused, record, st)),
               ("attack", lambda: phase_attack(rlr_fused, record, st)),
               ("acceptance", lambda: phase_acceptance(rlr_fused, record)),
-              ("state", lambda: phase_state(rlr_fused, record, st)))
+              ("state", lambda: phase_state(rlr_fused, record, st)),
+              ("population", lambda: phase_population(rlr_fused, record)))
     unknown = set(only) - {label for label, _ in phases}
     if unknown:
         print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)

@@ -34,6 +34,16 @@ Slice 6 ports the remaining server rules and the fault model:
     health/monitor.py the health policy at each eval boundary
     utils/guards.py   the boundary's finite check
 
+Slice 9 ports the population axis:
+
+    data/bank.py      the sharded, memory-mapped client bank (label_shards,
+                      dirichlet, pathological)
+    data/cohort.py    the seeded per-round cohort draw
+    data/traffic.py   diurnal presence
+    service/churn.py  churn lifecycles
+    utils/streams.py  the counter-based host stream those draws use
+    fl/rounds.py      the cohort-sampled round and the chained host round
+
 Hand-written kernel sources live in `csrc/` and are built on first use into
 `build/torch_ext/` at the repository root.
 """

@@ -12,7 +12,7 @@ signflip the agent's own `build_stamp(..., agent_idx=id)`, on cifar10's
 plus its quarter of the trigger; under `--attack dba` its round-robin
 shard of the full pattern, attack/dba.py). Every data path stamps through
 here: the dense build, the Fed-EMNIST users, and so the rows the host
-round gathers. The poisoned val set is every base-class val sample,
+round gathers, and the cohort's rows (data/registry.CohortData). The poisoned val set is every base-class val sample,
 stamped with the full pattern and relabeled. Same seeds, same draws: the
 arrays are byte-equal to the JAX package's.
 """
@@ -46,13 +46,15 @@ def select_poison_idxs(labels: np.ndarray, base_class: int, frac: float,
 
 def poison_client_row(images_row: np.ndarray, labels_row: np.ndarray,
                       size: int, agent_id: int, cfg,
-                      seed_offset: int = 1234) -> np.ndarray:
+                      seed_offset: int = 1234, stamp=None) -> np.ndarray:
     """Poison one agent's padded row in place with the stamp
-    registry.stamp_for_agent gives it; returns its [max_n] mask. The index
+    registry.stamp_for_agent gives it (or `stamp`, that stamp cached by
+    the caller: the cohort gather's); returns its [max_n] mask. The index
     choice and the label flip do not depend on the strategy."""
     max_n = labels_row.shape[0]
     mask = np.zeros((max_n,), dtype=bool)
-    stamp = attack_registry.stamp_for_agent(cfg, agent_id)
+    if stamp is None:
+        stamp = attack_registry.stamp_for_agent(cfg, agent_id)
     rng = np.random.default_rng(cfg.seed + seed_offset + agent_id)
     valid = np.arange(max_n) < size
     idxs = select_poison_idxs(labels_row, cfg.base_class, cfg.poison_frac,

@@ -6,13 +6,15 @@ slice 6's server rules avg|comed|sign|trmean|krum|rfa, the fault model,
 the quarantine set and the health monitor's policy, slice 7's attack
 registry and schedule, the watermark patterns, the defense telemetry and
 the TensorBoard sink, slice 8's checkpoint and resume, the reputation
-lanes and tracker, and the reference's diagnostics).
+lanes and tracker, and the reference's diagnostics, slice 9's population
+axis: churn, the cohort and its client bank, diurnal traffic).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
 keeps the JAX name and default; flags the port does not run yet are not
 accepted, so a command line that asks for one fails instead of being
-quietly ignored.
+quietly ignored (`--agg_mode buffered`, `--tenants` and `--chaos` are
+parsed only to be refused with the ROADMAP item that ports them).
 
 Port-only fields:
 - ``device`` (default ``cuda``): where the round runs. A run on ``cuda``
@@ -32,6 +34,10 @@ from typing import Optional
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
     registry as attack_registry)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.bank import (
+    PARTITIONERS)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.traffic import (
+    TRAFFIC_MODES)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
     model as fmodel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
@@ -50,6 +56,7 @@ PATTERNS = ("plus", "square", "copyright", "apple")
 ATTACKS = tuple(attack_registry.REGISTRY)   # static | dba | boost | signflip
 AGG_LAYOUTS = ("leaf", "bucket")    # JAX's choices; bucket is not ported
 TRAIN_LAYOUTS = ("vmap", "megabatch")
+COHORT_SAMPLED = ("auto", "on", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +178,57 @@ class Config:
     host_sampled: str = "auto"      # auto: shard stacks above the device-
                                     # resident budget (2 GiB) gather on the
                                     # host per round; on/off forces the mode
+    # --- client churn (JAX service/churn.py) ---
+    churn_available: float = 1.0    # fraction of lifecycle phases a client
+                                    # is present; 1.0 = no churn (the round
+                                    # as before); < 1 masks away clients
+                                    # out of the participation mask
+    churn_period: int = 32          # rounds per lifecycle phase
+    churn_seed: int = 0             # seeds the lifecycle draws (not --seed)
+    # --- the population axis (JAX data/bank.py, data/cohort.py) ---
+    cohort_sampled: str = "auto"    # auto | on | off: train a seeded
+                                    # per-round cohort gathered from the
+                                    # client bank (auto: on at >= 4096
+                                    # clients, utils/compile_cache.
+                                    # is_cohort_mode)
+    cohort_size: int = 0            # per-round cohort m; 0 = the
+                                    # reference's floor(num_agents *
+                                    # agent_frac)
+    cohort_seed: int = 0            # seeds the cohort draw (not --seed)
+    partitioner: str = "label_shards"  # label_shards (the paper's dealing
+                                    # scheme) | dirichlet | pathological
+    dirichlet_alpha: float = 0.5    # Dir(alpha) class-mixture
+                                    # concentration
+    classes_per_client: int = 2     # pathological: distinct classes a
+                                    # client holds
+    samples_per_client: int = 0     # dirichlet / pathological shard size;
+                                    # 0 = clamp(n / K, 16, 4096)
+    bank_dir: str = ""              # client-bank directory ("" = under
+                                    # data_dir/client_banks, else log_dir)
+    bank_shard_clients: int = 65536  # clients per bank index file (layout
+                                    # only; the content does not depend
+                                    # on it)
+    bank_build_workers: int = 1     # processes building the bank (the
+                                    # published bank is the serial one's)
+    bank_verify: bool = False       # check each reused index file against
+                                    # its sha256 sidecar
+    # --- diurnal traffic (JAX data/traffic.py) ---
+    traffic: str = "flat"           # flat | diurnal: seeded per-client
+                                    # timezones and a raised-cosine daily
+                                    # availability in the participation
+                                    # mask
+    traffic_seed: int = 0           # seeds the traffic draws (not --seed)
+    traffic_peak_frac: float = 0.8  # availability at a client's local peak
+    traffic_trough_frac: float = 0.1  # availability at its local trough
+    traffic_day_rounds: int = 64    # rounds per simulated day
+    traffic_latency_sigma: float = 0.8  # the buffered path's log-normal
+                                    # staleness sigma (that path is not
+                                    # ported; nothing else reads it)
+    # --- JAX paths not ported, accepted only to be refused by name ---
+    agg_mode: str = "sync"          # sync | buffered (buffered: not ported)
+    tenants: int = 0                # tenant packs (not ported)
+    chaos: str = ""                 # the service driver's drills (not
+                                    # ported)
     # --- port-only ---
     device: str = "cuda"
     use_fused: bool = True
@@ -191,9 +249,24 @@ class Config:
                 or self.corrupt_rate > 0 or self.payload_norm_cap > 0)
 
     @property
+    def churn_enabled(self) -> bool:
+        """Churn is on when availability is a real fraction; its mask then
+        joins the participation mask (JAX config.py:496-500)."""
+        return self.churn_available < 1.0
+
+    @property
+    def traffic_enabled(self) -> bool:
+        """Diurnal traffic is on when the model is not flat (JAX
+        config.py:503-507)."""
+        return self.traffic != "flat"
+
+    @property
     def agents_per_round(self) -> int:
-        """The per-round sample m = floor(K * C) (reference src/federated.py:68;
-        the JAX port's --cohort_size override is not in this slice)."""
+        """The per-round cohort m: an explicit --cohort_size wins, else the
+        reference's floor(K * C) (src/federated.py:68; JAX
+        config.py:515-523)."""
+        if self.cohort_size > 0:
+            return self.cohort_size
         return max(1, math.floor(self.num_agents * self.agent_frac))
 
     @property
@@ -230,7 +303,8 @@ def build_parser() -> argparse.ArgumentParser:
                       "attack_boost", "attack_start", "attack_stop",
                       "attack_every", "rlr_adapt", "rlr_adapt_every",
                       "telemetry", "tensorboard", "reputation",
-                      "diagnostics", "resume"):
+                      "diagnostics", "resume", "cohort_sampled",
+                      "partitioner", "bank_verify", "traffic", "agg_mode"):
             continue
         p.add_argument(f"--{f.name}", type=type(getattr(d, f.name)),
                        default=getattr(d, f.name))
@@ -318,6 +392,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true",
                    help="JAX's rematerialization of the model forward "
                         "(refused: not ported yet)")
+    p.add_argument("--cohort_sampled", choices=COHORT_SAMPLED,
+                   default=d.cohort_sampled,
+                   help="population/cohort decoupling (data/bank.py + "
+                        "data/cohort.py): the round trains a seeded "
+                        "per-round cohort gathered from a sharded "
+                        "memory-mapped client bank — host/HBM memory is "
+                        "constant in population size (auto: on at >= "
+                        "4096 clients)")
+    p.add_argument("--partitioner", choices=PARTITIONERS,
+                   default=d.partitioner,
+                   help="client-bank partitioner: label_shards = the "
+                        "paper's dealing scheme (exact, small K); "
+                        "dirichlet / pathological = per-client-seeded "
+                        "non-IID draws that scale to millions of clients")
+    p.add_argument("--bank_verify", action="store_true",
+                   help="verify the client bank's per-shard sha256 "
+                        "sidecars on open; a corrupted indices-*.bin "
+                        "fails loudly naming the shard")
+    p.add_argument("--traffic", choices=TRAFFIC_MODES, default=d.traffic,
+                   help="traffic model (data/traffic.py): flat = every "
+                        "path as before; diurnal = seeded per-client "
+                        "timezones + raised-cosine daily availability "
+                        "into the participation mask")
+    p.add_argument("--agg_mode", choices=("sync", "buffered"),
+                   default=d.agg_mode,
+                   help="sync aggregates every round (buffered-async "
+                        "aggregation is refused: not ported yet)")
     p.add_argument("--no_fused", action="store_true",
                    help="server step through ops/aggregate.py instead of "
                         "the fused RLR kernel")
@@ -362,18 +463,39 @@ def args_parser(argv: Optional[list] = None) -> Config:
     if ns.remat:
         raise ValueError("--remat (torch.utils.checkpoint) is not ported "
                          "yet")
-    if cfg.chain > 1 and cfg.host_sampled == "on":
-        raise ValueError(CHAINED_HOST_NOT_PORTED)
+    check_not_ported(cfg)
     return cfg
+
+
+def check_not_ported(cfg: Config) -> None:
+    """Refuse, by name and ROADMAP item, the JAX paths the population
+    axis's flags reach that the port has not yet."""
+    if cfg.agg_mode != "sync":
+        raise ValueError(BUFFERED_NOT_PORTED)
+    if cfg.tenants > 0:
+        raise ValueError(TENANTS_NOT_PORTED)
+    if cfg.chaos:
+        raise ValueError(CHAOS_NOT_PORTED)
 
 
 RLR_ADAPT_NOT_PORTED = (
     "--rlr_adapt on (attack/adapt.py: the service driver's online "
     "threshold adaptation) is not ported yet; it needs the service driver "
     "and checkpoints")
-CHAINED_HOST_NOT_PORTED = (
-    "--chain > 1 with host sampling (JAX make_chained_round_fn_host) is "
-    "not ported yet; the host-sampled round runs one round a dispatch")
+BUFFERED_NOT_PORTED = (
+    "--agg_mode buffered (fl/buffered.py: buffered-async aggregation) is "
+    "not ported yet (ROADMAP queue 1 item 12); the port aggregates every "
+    "round (--agg_mode sync)")
+TENANTS_NOT_PORTED = (
+    "--tenants (fl/tenancy.py: tenant packs of experiments) is not ported "
+    "yet (ROADMAP queue 1 item 12); run one experiment a process")
+CHAOS_NOT_PORTED = (
+    "--chaos (service/chaos.py: the service driver's fault drills, "
+    "bank_corrupt among them) is not ported yet (ROADMAP queue 1 item 15)")
+SHARDED_COHORT_NOT_PORTED = (
+    "the sharded cohort round (JAX make_sharded_cohort_round_fn) and "
+    "churn or traffic on the sharded round are not ported yet (ROADMAP "
+    "queue 1 item 11); run the cohort-sampled round on one card")
 
 
 def print_exp_details(cfg: Config) -> None:
@@ -411,6 +533,16 @@ def print_exp_details(cfg: Config) -> None:
           f"start {cfg.attack_start} stop {cfg.attack_stop} every "
           f"{cfg.attack_every}  Pattern: {cfg.pattern_type}  Telemetry: "
           f"{cfg.telemetry}")
+    print(f"    Population: cohort_sampled {cfg.cohort_sampled}  cohort "
+          f"{cfg.agents_per_round}  cohort_seed {cfg.cohort_seed}  "
+          f"partitioner {cfg.partitioner} (alpha {cfg.dirichlet_alpha}, "
+          f"{cfg.classes_per_client} classes, {cfg.samples_per_client} "
+          f"samples a client)")
+    print(f"    Churn: available {cfg.churn_available}  period "
+          f"{cfg.churn_period}  seed {cfg.churn_seed}  Traffic: "
+          f"{cfg.traffic} (peak {cfg.traffic_peak_frac}, trough "
+          f"{cfg.traffic_trough_frac}, day {cfg.traffic_day_rounds} rounds, "
+          f"seed {cfg.traffic_seed})")
     print(f"    Reputation: {cfg.reputation}  Diagnostics: "
           f"{cfg.diagnostics} (top {cfg.top_frac})  Checkpoints: "
           f"{cfg.checkpoint_dir or 'off'}  Resume: {cfg.resume}")

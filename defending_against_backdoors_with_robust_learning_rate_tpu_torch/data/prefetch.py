@@ -9,11 +9,14 @@ line, the gather and the copy sit between two replays of the round.
 `RoundPrefetcher` runs them on a worker thread up to `depth` rounds
 ahead, in the order the driver will ask for them.
 
-`HostGather` is the producer: the rows of the sampled ids gathered
-straight into pinned host memory, then copied to the card on a side
-stream, with an event that the round's stream waits on before it reads
-them (`Payload.ready`). The sampling sequence is the caller's (seeded per
-round, train.sample_ids); the pipeline only evaluates it early.
+`HostGather` is the producer: the rows of the sampled ids, from the
+dense host stacks or from the cohort round's client bank
+(data/registry.CohortData.gather_cohort), gathered into pinned host
+memory, then copied to the card on a side stream, with an event that the
+round's stream waits on before it reads them (`Payload.ready`). A chained
+unit's rounds are gathered as one [chain, m, ...] block. The sampling
+sequence is the caller's (train.sample_ids: seeded per round, or the
+cohort draw); the pipeline only evaluates it early.
 """
 
 from __future__ import annotations
@@ -32,15 +35,19 @@ _SENTINEL = object()
 
 @dataclasses.dataclass
 class Payload:
-    """One round's gathered stacks on the round's device: the ids, images
-    [m, max_n, ...], labels [m, max_n] int64 and sizes [m] int32. On a
-    CUDA device the copies may still be in flight on a side stream until
-    `ready()`."""
+    """One dispatch unit's gathered stacks on the round's device: the ids
+    ([m], or [chain, m] for a chained block), images [..., m, max_n, ...],
+    labels [..., m, max_n] int64 and sizes [..., m] int32; on the host the
+    sizes again (`host_sizes`, what the slot draws read) and, on the
+    cohort round, the cohort's `active` mask. On a CUDA device the copies
+    may still be in flight on a side stream until `ready()`."""
     ids: np.ndarray
     images: torch.Tensor
     labels: torch.Tensor
     sizes: torch.Tensor
     event: Optional["torch.cuda.Event"] = None
+    host_sizes: Optional[np.ndarray] = None
+    active: Optional[np.ndarray] = None
 
     def ready(self):
         """(ids, images, labels, sizes), the current stream made to wait
@@ -56,44 +63,65 @@ class Payload:
 
 
 class HostGather:
-    """gather(ids) -> Payload: rows `ids` of the host shard stacks (an
-    `AgentShards`) on `device`. On a CUDA device each array's rows are
-    gathered into pinned memory and copied on this gatherer's side
-    stream, without a host sync; elsewhere they are plain tensors."""
+    """gather(ids, active=None) -> Payload: the rows of `ids` from a gather
+    source, on `device`. The source is the dense host shard stacks (an
+    `AgentShards`: the host-sampled round's, rows taken by id) or a
+    function ids -> (images, labels, sizes) of numpy arrays (the cohort
+    round's `CohortData.gather_cohort`, reading the client bank). `ids` is
+    one round's [m] or a chained block's [chain, m]: a block is gathered
+    whole, one payload a dispatch unit. On a CUDA device the rows land in
+    pinned memory and are copied on this gatherer's side stream, without
+    a host sync; elsewhere they are plain tensors."""
 
-    def __init__(self, shards, device):
-        self.shards = shards
+    def __init__(self, source, device):
+        self.source = source
         self.device = torch.device(device)
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
 
-    def __call__(self, ids) -> Payload:
+    def __call__(self, ids, active=None) -> Payload:
         ids = np.asarray(ids)
-        sh = self.shards
-        # (host array, torch dtype on the device): labels go to int64, the
-        # cross-entropy's target type
-        rows = [(a, dt or torch.from_numpy(a[:0]).dtype) for a, dt in (
-            (sh.images, None), (sh.labels, torch.int64), (sh.sizes, None))]
+        if callable(self.source):
+            per_round = [self.source(row)
+                         for row in ids.reshape(-1, ids.shape[-1])]
+            arrays = [np.stack([r[i] for r in per_round]).reshape(
+                ids.shape + per_round[0][i].shape[1:]) for i in range(3)]
+            shapes = [a.shape for a in arrays]
+
+            def fill(i, out):
+                out[...] = arrays[i]
+        else:
+            src = (self.source.images, self.source.labels,
+                   self.source.sizes)
+            shapes = [ids.shape + a.shape[1:] for a in src]
+
+            def fill(i, out):
+                if out.dtype == src[i].dtype:       # one pass, no temporary
+                    np.take(src[i], ids, axis=0, out=out)
+                else:
+                    out[...] = src[i][ids]
+        dtypes = [torch.from_numpy(np.empty(0, a.dtype)).dtype
+                  for a in (arrays if callable(self.source) else src)]
+        # labels go to int64 on the device, the cross-entropy's target type
+        dtypes[1] = torch.int64
+        if active is not None:
+            active = np.asarray(active, dtype=bool)
+        bufs = [torch.empty(shape, dtype=dt,
+                            pin_memory=self.stream is not None)
+                for shape, dt in zip(shapes, dtypes)]
+        for i, buf in enumerate(bufs):
+            fill(i, buf.numpy())
+        host_sizes = bufs[2].numpy().copy()
         if self.stream is None:
-            return Payload(ids, *(torch.from_numpy(a[ids]).to(dt)
-                                  for a, dt in rows))
-        pinned = []
-        for a, dt in rows:
-            buf = torch.empty((len(ids),) + a.shape[1:], dtype=dt,
-                              pin_memory=True)
-            out = buf.numpy()
-            if out.dtype == a.dtype:
-                np.take(a, ids, axis=0, out=out)    # one pass, no temporary
-            else:
-                out[...] = a[ids]
-            pinned.append(buf)
+            return Payload(ids, *bufs, host_sizes=host_sizes, active=active)
         with torch.cuda.stream(self.stream):
-            dev = [b.to(self.device, non_blocking=True) for b in pinned]
+            dev = [b.to(self.device, non_blocking=True) for b in bufs]
             event = torch.cuda.Event()
             event.record(self.stream)
         # freeing the pinned buffers is safe: the caching host allocator
         # holds each block until the copy's event has passed
-        return Payload(ids, *dev, event=event)
+        return Payload(ids, *dev, event=event, host_sizes=host_sizes,
+                       active=active)
 
 
 class RoundPrefetcher:

@@ -4,7 +4,9 @@ formats, or the synthetic stand-ins at their shapes.
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 data/registry.py` (`make_synthetic`, `_read_idx`, `_load_fmnist`,
 `_load_cifar10`, `_to_numpy_pt`, `_load_fedemnist`, `FederatedData`,
-`get_datasets`, `get_federated_data`). The code that makes and reads the
+`get_datasets`, `get_federated_data`, and the cohort-sampled round's
+`CohortData`, `resolve_bank_root`, `resolve_bank_dir`,
+`get_cohort_data`). The code that makes and reads the
 arrays is this package's own copy of the JAX package's, so the same seed
 gives byte-equal arrays. Images stay raw pixels (uint8 NHWC for fmnist and
 cifar10, already normalized float32 for fedemnist) because poisoning stamps
@@ -66,6 +68,118 @@ class FederatedData:
     std: np.ndarray                      # [C]
     raw_is_normalized: bool = False      # fedemnist: skip /255 + mean/std
     synthetic: bool = False
+
+
+@dataclasses.dataclass
+class CohortData(FederatedData):
+    """FederatedData of the cohort-sampled round (JAX `CohortData`).
+
+    `train` holds a zero-client AgentShards whose arrays carry only a
+    cohort row's shape and dtype ([0, max_n, H, W, C], no bytes), so what
+    reads the shard geometry works unchanged; the population lives in the
+    memory-mapped client bank. `gather_cohort` gives a round's rows, the
+    corrupt members' poisoned by the per-client routine the dense build
+    uses (attack/poison.poison_client_row, with the stamp
+    attack/registry.stamp_for_agent gives): the rows equal the dense
+    build's bit for bit."""
+    bank: object = None                  # data/bank.ClientBank
+    base_images: np.ndarray = None       # [N, H, W, C] raw pixels
+    base_labels: np.ndarray = None       # [N] int32
+    max_n: int = 0                       # padded cohort-row length
+    cfg: object = None                   # poison + population params
+    _stamps: dict = dataclasses.field(default_factory=dict)
+
+    def gather_cohort(self, ids) -> Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray]:
+        """([m, max_n, ...], [m, max_n], [m]) padded stacks of the cohort
+        `ids`: O(cohort) work and memory, whatever the population."""
+        from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+            poison, registry as attack_registry)
+        imgs, lbls, sizes = self.bank.gather(ids, self.base_images,
+                                             self.base_labels, self.max_n)
+        cfg = self.cfg
+        if cfg.num_corrupt > 0 and cfg.poison_frac > 0:
+            for j, cid in enumerate(np.asarray(ids)):
+                cid = int(cid)
+                if cid >= cfg.num_corrupt:
+                    continue
+                stamp = self._stamps.get(cid)
+                if stamp is None:
+                    stamp = attack_registry.stamp_for_agent(cfg, cid)
+                    self._stamps[cid] = stamp
+                poison.poison_client_row(imgs[j], lbls[j], int(sizes[j]),
+                                         cid, cfg, stamp=stamp)
+        return imgs, lbls, sizes
+
+
+def resolve_bank_root(cfg) -> str:
+    """The client-bank root of this config: --bank_dir, else
+    <data_dir>/client_banks when data_dir exists, else under log_dir."""
+    if cfg.bank_dir:
+        return cfg.bank_dir
+    base = (cfg.data_dir if os.path.isdir(cfg.data_dir) else cfg.log_dir)
+    return os.path.join(base, "client_banks")
+
+
+def resolve_bank_dir(cfg, key: str) -> str:
+    if cfg.bank_dir:
+        return cfg.bank_dir
+    return os.path.join(resolve_bank_root(cfg), f"{cfg.data}-{key[:12]}")
+
+
+def get_cohort_data(cfg) -> CohortData:
+    """The cohort-sampled data (JAX `get_cohort_data`): the base dataset,
+    the client bank (opened when a build with this key exists, built once
+    otherwise) and the eval sets. Host memory is O(base dataset), not
+    O(population)."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack.poison import (
+        build_poisoned_val)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+        bank as bank_mod)
+
+    train, val, synthetic = get_datasets(cfg)
+    if isinstance(train, list):
+        raise ValueError(
+            f"cohort-sampled mode needs a single base dataset to index; "
+            f"{cfg.data!r} loads pre-split per-user shards — run it "
+            f"through the host-sampled path (--cohort_sampled off)")
+    key = bank_mod.bank_key(
+        train.labels, population=cfg.num_agents,
+        partitioner=cfg.partitioner,
+        samples_per_client=bank_mod.resolve_samples_per_client(
+            cfg.samples_per_client, len(train.labels), cfg.num_agents),
+        dirichlet_alpha=cfg.dirichlet_alpha,
+        classes_per_client=cfg.classes_per_client, seed=cfg.seed,
+        n_classes=cfg.n_classes)
+    bank, built = bank_mod.get_or_build(
+        resolve_bank_dir(cfg, key), train.labels,
+        population=cfg.num_agents, partitioner=cfg.partitioner,
+        samples_per_client=cfg.samples_per_client,
+        dirichlet_alpha=cfg.dirichlet_alpha,
+        classes_per_client=cfg.classes_per_client, seed=cfg.seed,
+        n_classes=cfg.n_classes, shard_clients=cfg.bank_shard_clients,
+        key=key, verify=cfg.bank_verify,
+        workers=cfg.bank_build_workers)
+    if not built:
+        print(f"[bank] opened existing {cfg.partitioner} bank "
+              f"({bank.population:,} clients) at {bank.dir}")
+    max_n = bank.padded_max_n(cfg.bs)
+    shard_shim = AgentShards(
+        images=np.zeros((0, max_n) + train.images.shape[1:],
+                        dtype=train.images.dtype),
+        labels=np.zeros((0, max_n), dtype=np.int32),
+        sizes=np.zeros((0,), dtype=np.int32))
+    pv_imgs, pv_lbls = build_poisoned_val(val.images, val.labels, cfg)
+    mean, std = NORM_STATS[cfg.data]
+    return CohortData(
+        train=shard_shim,
+        val_images=val.images, val_labels=val.labels,
+        pval_images=pv_imgs, pval_labels=pv_lbls,
+        mean=np.asarray(mean, np.float32), std=np.asarray(std, np.float32),
+        raw_is_normalized=(cfg.data == "fedemnist"),
+        synthetic=synthetic,
+        bank=bank, base_images=train.images, base_labels=train.labels,
+        max_n=max_n, cfg=cfg)
 
 
 # ---------------------------------------------------------------- loaders ---

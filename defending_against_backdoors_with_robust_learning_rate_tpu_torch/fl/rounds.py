@@ -6,7 +6,11 @@ Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 fl/rounds.py` — the dense device-resident path (`vmap_agents`,
 `megabatch_agents`, `_run_chunked`, the layout-dispatched
 `make_block_trainer`, `_make_sample_step`, `_round_core`, `make_round_fn`,
-`make_chained`, `make_chained_round_fn`) and `_pallas_applicable`. The JAX
+`make_chained`, `make_chained_round_fn`), the host-sampled and cohort
+rounds (`make_host_step`, `make_round_fn_host`, `make_chained_host`,
+`make_chained_round_fn_host`, `make_cohort_step`, `make_cohort_round_fn`,
+`make_chained_cohort_round_fn`), `step_takes_round` and
+`_pallas_applicable`. The JAX
 round is one jitted program with the m agents vmapped and `--chain N`
 rounds scanned in one dispatch. Here the m agents train as one batched
 program (fl/client.make_local_train_batched, layout `--train_layout`, in
@@ -26,8 +30,9 @@ whose static input buffers each round refills.
 
 Server step: the fused RLR kernel (ops/rlr_fused.py) wherever
 `_fused_applicable` holds, which is the default; ops/aggregate.py
-otherwise (a rule other than avg or sign, server noise, faults, a
-quarantine set, `--telemetry`, or the snap rounds of `--diagnostics`).
+otherwise (a rule other than avg or sign, server noise, faults, churn,
+diurnal traffic, the cohort round, a quarantine set, `--telemetry`, or
+the snap rounds of `--diagnostics`).
 
 Attack (`--attack boost|signflip`, attack/registry.py): the update
 strategy scales the corrupt rows of the stacked updates right after local
@@ -88,6 +93,23 @@ lanes from the stack after the attack, masked slots zeroed, before the
 server step (K1 stays on), inside the captured graph; `make_chained`
 stacks them like the other lanes.
 
+Presence (`--churn_available`, `--traffic diurnal`, service/churn.py,
+data/traffic.py): the dense round's [m] presence mask of its sampled ids
+is drawn on the host for each round (`presence`) and enters the device
+work as an input, where it joins the participation mask with the
+quarantine's (JAX `_make_sample_step`'s churn_active); under churn the
+round adds `churn_away` (Churn/Sampled_Away) and, without faults, JAX's
+churn-only Faults/* scalars. The kernel is off under both.
+
+The cohort-sampled round (`make_cohort_round_fn`, JAX `make_cohort_step`
+/ `make_cohort_round_fn`: the population axis, a seeded cohort of m
+clients a round from a client bank of up to millions, data/bank.py and
+data/cohort.py) runs the host round's device work over the cohort's
+gathered rows, with the cohort's ids and `active` mask as inputs of the
+one captured graph. The chained host-sampled and cohort rounds
+(`make_chained_host`) run a gathered [chain, m, ...] block one replay a
+row.
+
 Diagnostics (`--diagnostics`, fl/diagnostics.py): a round fn built from a
 config with `diagnostics` set runs the plain server step (K1 never makes
 the lr) and adds "agent_norms" ([m]) and, with RLR on, "lr_flat" (the
@@ -105,6 +127,8 @@ import torch
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
     registry as attack_registry)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+    traffic)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
     masking, model as fmodel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
@@ -119,12 +143,18 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.aggrega
     aggregate_updates, apply_aggregate, draw_noise, robust_lr)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.rlr_fused import (
     fused_rlr_avg_apply)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.service import (
+    churn)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
     compile_cache)
 
 # the fault scalars (faults/model.fault_scalars) a chained block carries
 # beside train_loss and the hlth_* lanes (JAX fl/rounds.py:39)
 FAULT_INFO_KEYS = fmodel.INFO_KEYS
+# everything a chained block stacks besides train_loss and the hlth_*,
+# tel_* and rep_* lanes: the fault counters and the churn away count (JAX
+# CHAINED_INFO_KEYS without the buffered path's)
+CHAINED_INFO_KEYS = FAULT_INFO_KEYS + ("churn_away",)
 
 
 class RoundRNG:
@@ -206,11 +236,45 @@ def _fused_applicable(cfg) -> bool:
     computed from the stack before it runs. `--diagnostics` turns it off
     in the config it is set in, the snap rounds' round fn (train.py): that
     round reads the explicit lr, as JAX's `not cfg.diagnostics` clause
-    says."""
+    says.
+
+    Churn, diurnal traffic and the cohort-sampled round carry a presence
+    mask into the vote, which the kernel does not take: it is off there,
+    as JAX's `not cfg.churn_enabled` and `not compile_cache.is_cohort_mode`
+    clauses say (fl/rounds.py:60-75). JAX has no traffic clause: under
+    `--use_pallas --traffic diurnal` on its dense round its kernel skips
+    the presence mask; the port turns the kernel off there too."""
     return (cfg.use_fused and cfg.aggr in ("avg", "sign") and cfg.noise == 0
             and not cfg.diagnostics and not cfg.faults_enabled
+            and not cfg.churn_enabled and not cfg.traffic_enabled
+            and not compile_cache.is_cohort_mode(cfg)
             and not health_sentinel.has_quarantine(cfg)
             and cfg.telemetry == "off")
+
+
+def step_takes_round(cfg) -> bool:
+    """Whether the round's work reads the round index (JAX
+    `step_takes_round`): the churn lifecycle and the diurnal presence are
+    functions of time, and so is a scheduled update attack. The port draws
+    all three on the host from the round index it always knows; this says
+    which configs make the round's inputs depend on it (the cohort round
+    always does: its draw reads it)."""
+    return (cfg.churn_enabled or cfg.traffic_enabled
+            or attack_registry.needs_round(cfg))
+
+
+def presence(cfg, sampled, rnd: int) -> Optional[torch.Tensor]:
+    """[m] bool on the host: each sampled client churn-present and
+    traffic-present at round rnd (service/churn.py, data/traffic.py), or
+    None when neither is on (JAX `_make_sample_step`'s churn_active before
+    the quarantine)."""
+    ok = None
+    if cfg.churn_enabled:
+        ok = churn.active_slots(cfg, sampled, rnd)
+    if cfg.traffic_enabled:
+        here = traffic.present_slots(cfg, sampled, rnd)
+        ok = here if ok is None else ok & here
+    return None if ok is None else torch.from_numpy(ok)
 
 
 def sample_agents(cfg, gen: torch.Generator) -> torch.Tensor:
@@ -254,8 +318,11 @@ def server_path(params, updates, sizes, cfg, noise=None, draw=None,
     """The round after local training and the attack, in JAX
     `_round_core`'s order (fl/rounds.py:293-428): with a fault draw, the
     corrupt payloads injected, mask = participate & payload_valid and the
-    Faults/* scalars; with a quarantine mask `qmask` ([m] bool, True = not
-    quarantined), mask &= qmask and the effective voters recounted; with
+    Faults/* scalars; with a presence mask `qmask` ([m] bool: JAX's
+    churn_active, True = the slot's client is not quarantined, is churn-
+    and traffic-present, and on the cohort round is no shortfall padding),
+    mask &= qmask and the effective voters recounted, and under churn the
+    away count (with no fault draw, JAX's churn-only Faults/* scalars); with
     `lanes`, the reputation lanes over the masked stack, before the server
     step reads it; then `server_step` over the mask, the telemetry (with
     the corrupt-slot `flags`, [m] bool or None), under `--diagnostics` the
@@ -274,6 +341,10 @@ def server_path(params, updates, sizes, cfg, noise=None, draw=None,
         mask = qmask if mask is None else mask & qmask
         if draw is not None:
             info["fault_voters"] = masking.count_f32(mask)
+            if cfg.churn_enabled:
+                info["churn_away"] = churn.churn_away(qmask)
+        elif cfg.churn_enabled:
+            info.update(churn.churn_only_scalars(qmask, mask))
     if lanes:
         info.update(reputation.lanes(updates, mask))
     if cfg.telemetry == "off" and not cfg.diagnostics:
@@ -302,26 +373,36 @@ def corrupt_slots(cfg, sampled) -> torch.Tensor:
     return torch.as_tensor(np.asarray(sampled) < cfg.num_corrupt)
 
 
-def adversary_inputs(cfg, rnd: int, sampled, device):
+def adversary_inputs(cfg, rnd: int, sampled, device, active=None):
     """Round rnd's (hits, flags) inputs of the device work on `device`:
     the [m] slots the update attack hits (attack/registry.attacked_slots:
     the sampled ids' corrupt flags and the schedule gate of round rnd), or
     None without an update strategy; the [m] corrupt-slot flags under
-    `--telemetry full` (its cosine split), else None."""
+    `--telemetry full` (its cosine split), else None. On the cohort round
+    both are ANDed with its `active` mask ([m] bool on the host), JAX's
+    `(ids < num_corrupt) & active`."""
     hits = attack_registry.attacked_slots(cfg, sampled, rnd)
     flags = (corrupt_slots(cfg, sampled) if cfg.telemetry == "full"
              else None)
+    if active is not None:
+        act = torch.as_tensor(np.asarray(active, dtype=bool))
+        hits, flags = (None if t is None else t & act for t in (hits, flags))
     return tuple(None if t is None else t.to(device) for t in (hits, flags))
 
 
-def draw_faults(cfg, rng: RoundRNG, rnd: int, sampled, device):
+def draw_faults(cfg, rng: RoundRNG, rnd: int, sampled, device, active=None):
     """Round rnd's fault draw for the sampled ids on `device`, or None
-    when cfg has no faults (the dense round as before)."""
+    when cfg has no faults (the dense round as before). The spared
+    attackers are the sampled corrupt ids (on the cohort round, the
+    active ones)."""
     if not cfg.faults_enabled:
         return None
+    corrupt = corrupt_slots(cfg, sampled)
+    if active is not None:
+        corrupt = corrupt & torch.as_tensor(np.asarray(active, dtype=bool))
     return fmodel.draw_to(
-        fmodel.sample_faults(cfg, rng.faults(rnd), len(sampled),
-                             corrupt_slots(cfg, sampled)), device)
+        fmodel.sample_faults(cfg, rng.faults(rnd), len(sampled), corrupt),
+        device)
 
 
 def _run_chunked(block_fn, params, agents, perms, keep, chunk: int,
@@ -394,20 +475,23 @@ class BlockTrainer:
                                                self.layout)
 
     def draw(self, rng: RoundRNG, rnd: int, sampled, lo: int, hi: int,
-             perms: Optional[Sequence] = None, dropout: bool = True):
+             perms: Optional[Sequence] = None, dropout: bool = True,
+             slot_sizes=None):
         """(agents [hi-lo] on the device, perms [hi-lo, local_ep, n_total],
         keep: per dropout site [hi-lo, local_ep, nb, bs, F] bool, or
         None). Slot by slot, so one slot's f32 temporaries are alive at a
-        time."""
+        time. A slot's shard size is sizes_host[its id], or slot_sizes[slot]
+        when given (the cohort round's gathered sizes, on the host)."""
         device, n_total = self.device, self.n_total
         shapes = self.sites if dropout else ()
         perm_rows, keep = [], None
         for i, s in enumerate(range(lo, hi)):
             slot_perms = slot_keep = None
             if perms is None or shapes:
+                size = (self.sizes_host[sampled[s]] if slot_sizes is None
+                        else slot_sizes[s])
                 slot_perms, slot_keep = draw_slot(
-                    rng.slot(rnd, s), int(self.sizes_host[sampled[s]]),
-                    n_total, self.cfg, shapes)
+                    rng.slot(rnd, s), int(size), n_total, self.cfg, shapes)
             if perms is not None:
                 slot_perms = torch.stack([torch.as_tensor(q) for q in
                                           perms[s]]).to(device)
@@ -462,21 +546,27 @@ def _device_round(cfg, trainer, qset=None):
     round's FaultDraw or None, `data` as in `BlockTrainer.run`, `hits`
     and `flags` as `adversary_inputs` gives them; `qset` the quarantined
     ids on the device (health/sentinel.quarantine_set), matched against
-    `agents`, the sampled ids. With the reputation lanes on
+    `ids` (the cohort's client ids on the device), else `agents`, the
+    sampled ids; `active` the [m] presence mask of churn, traffic and the
+    cohort's padding (None without), ANDed with the quarantine's into
+    JAX's churn_active. With the reputation lanes on
     (obs/reputation.reputation_on), the round's info holds rep_agree and
     rep_norm ([m] each)."""
     lanes = reputation.reputation_on(cfg)
 
     def device_round(params, agents, perms, keep, noise, draw=None,
-                     data=None, hits=None, flags=None):
+                     data=None, hits=None, flags=None, active=None,
+                     ids=None):
         ep_budget = (draw.ep_budget
                      if draw is not None and cfg.straggler_rate > 0 else None)
         updates, losses = trainer.run(params, agents, perms, keep, data,
                                       ep_budget)
         updates = attack_registry.apply_update_attack(cfg, updates, hits)
         sizes = (trainer.sizes_dev if data is None else data[2])[agents]
-        qmask = (None if qset is None
-                 else health_sentinel.quarantine_mask(cfg, agents, qset))
+        qmask = (None if qset is None else health_sentinel.quarantine_mask(
+            cfg, agents if ids is None else ids, qset))
+        if active is not None:
+            qmask = active if qmask is None else active & qmask
         new_params, info = server_path(params, updates, sizes, cfg, noise,
                                        draw, qmask, flags, lanes)
         return new_params, {"train_loss": torch.mean(losses), **info}
@@ -526,8 +616,11 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
         noise = draw_noise(params, cfg, rng.noise)
         if faults is None:
             faults = draw_faults(cfg, rng, rnd, sampled, device)
+        here = presence(cfg, sampled, rnd)
         new_params, info = step(params, *draws, noise, faults, None,
-                                *adversary_inputs(cfg, rnd, sampled, device))
+                                *adversary_inputs(cfg, rnd, sampled, device),
+                                None if here is None
+                                else _to_device(here, device))
         return new_params, {**info, "sampled": sampled}
 
     round_fn.graph = step if capture else None
@@ -546,12 +639,20 @@ def make_host_step(cfg, model, normalize, sizes, n_total: int, device):
     `flags` as `adversary_inputs` gives them. sizes is
     the [K] numpy array of true shard sizes the draws read;
     `step.trainer` draws them (`BlockTrainer.draw`). The refusals of JAX's
-    host step (fl/rounds.py:625-671): quarantine and a scheduled attack
-    are refused with JAX's errors, as the step has no channel for the
-    sampled ids or the round index; churn, traffic and buffered
-    aggregation concern features the port does not have, and the port has
-    no chained host round for JAX's flag-channel refusal to guard. The
-    update attack itself runs: the driver's ids give its flags."""
+    host step (fl/rounds.py:625-671): churn, diurnal traffic, quarantine
+    and a scheduled attack are refused with JAX's errors, as the step has
+    no channel for the sampled ids or the round index (train.run routes a
+    host-sampled run under churn or traffic to the cohort round instead,
+    as JAX's driver does). The update attack itself runs: the driver's
+    ids give its flags."""
+    if cfg.churn_enabled:
+        raise ValueError(
+            "client churn (--churn_available < 1) is not supported in "
+            "host-sampled mode; run device-resident (--host_sampled off)")
+    if cfg.traffic_enabled:
+        raise ValueError(
+            "diurnal traffic (--traffic diurnal) is not supported in "
+            "host-sampled mode; run device-resident or cohort-sampled")
     if health_sentinel.has_quarantine(cfg):
         raise ValueError(
             "--quarantine is not supported in host-sampled mode (the "
@@ -621,25 +722,61 @@ def make_round_fn_host(cfg, model, normalize, sizes, n_total: int, device,
     return round_fn
 
 
+def _chained_row(info) -> dict:
+    """The lanes of one round a chained block keeps, copied out before
+    the next replay overwrites them: "train_loss", the hlth_*, tel_* and
+    rep_* lanes and the CHAINED_INFO_KEYS."""
+    return {k: v.clone() for k, v in info.items()
+            if k == "train_loss"
+            or k.startswith(("hlth_", telemetry.PREFIX, reputation.PREFIX))
+            or k in CHAINED_INFO_KEYS}
+
+
+def _stacked(rows, sampled) -> dict:
+    return {**{k: torch.stack([r[k] for r in rows]) for k in rows[0]},
+            "sampled": sampled}
+
+
 def make_chained(round_fn):
     """chained(params, rng, n) -> (params, info): n rounds of round_fn with
     no host sync between them (on a CUDA device, n graph replays), the
     counterpart of JAX's `lax.scan` over a block of rounds. info["sampled"]
-    lists each round's ids; "train_loss", the hlth_*, tel_* and rep_*
-    lanes and the FAULT_INFO_KEYS are stacked [n, ...], each round's
-    copied out before the next replay overwrites it."""
+    lists each round's ids; the lanes `_chained_row` keeps are stacked
+    [n, ...]."""
     def chained(params, rng: RoundRNG, n: int):
         rows, sampled = [], []
         for _ in range(n):
             params, info = round_fn(params, rng)
             sampled.append(info["sampled"])
-            rows.append({k: v.clone() for k, v in info.items()
-                         if k == "train_loss"
-                         or k.startswith(("hlth_", telemetry.PREFIX,
-                                          reputation.PREFIX))
-                         or k in FAULT_INFO_KEYS})
-        out = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-        return params, {**out, "sampled": sampled}
+            rows.append(_chained_row(info))
+        return params, _stacked(rows, sampled)
+    return chained
+
+
+def make_chained_host(round_fn):
+    """chained(params, rng, block) -> (params, info) over a gathered block
+    (JAX `make_chained_host`): `block` holds one argument tuple of
+    round_fn after (params, rng) per round, its rows of the [chain, m,
+    ...] stacks the driver gathered for the whole unit (train.py,
+    data/prefetch.py). Round r of the block is round_fn on row r: on a
+    CUDA device one replay of round_fn's captured graph, its static
+    inputs refilled from the row's views, nothing allocated on the card;
+    so a chained block equals the same rounds dispatched one at a time.
+    The info is stacked as `make_chained` stacks it.
+
+    JAX's chained host scan has no per-round flag channel: its driver
+    unchains a host-sampled run under faults or an update attack, which
+    the port's driver does too (compile_cache.chain_budget), and under
+    `--telemetry full` its cosine split sees every slot as honest. Here
+    each round keeps its own flags, so the split stays exact."""
+    def chained(params, rng: RoundRNG, block):
+        rows, sampled = [], []
+        for args in block:
+            params, info = round_fn(params, rng, *args)
+            sampled.append(info["sampled"])
+            rows.append(_chained_row(info))
+        return params, _stacked(rows, sampled)
+    chained.graph = round_fn.graph
     return chained
 
 
@@ -647,3 +784,126 @@ def make_chained_round_fn(cfg, model, normalize, images, labels, sizes):
     """chained(params, rng, n) over this config's round (`make_chained`)."""
     return make_chained(make_round_fn(cfg, model, normalize, images, labels,
                                       sizes))
+
+
+def make_chained_round_fn_host(cfg, model, normalize, sizes, n_total: int,
+                               device):
+    """chained(params, rng, block) over this config's host-sampled round
+    (`make_chained_host`; diagnostics off, as JAX's)."""
+    return make_chained_host(make_round_fn_host(
+        cfg.replace(diagnostics=False), model, normalize, sizes, n_total,
+        device))
+
+
+# ------------------------------------------------------- cohort-sampled ---
+
+def make_cohort_step(cfg, model, normalize, n_total: int, device):
+    """The cohort-sampled round's device work (JAX `make_cohort_step`):
+    step(params, ids, active, imgs, lbls, slot_sizes, perms, keep, noise,
+    draw=None, hits=None, flags=None) -> (params, {"train_loss", hlth_*,
+    tel_*, rep_* and fault_* lanes, churn_away}).
+
+    The data arrives gathered on the host like the host-sampled round's
+    ([m, n_total, ...] stacks of the cohort's bank rows, data/bank.py),
+    with the cohort's client ids `ids` ([m] int64 on the device) and its
+    `active` mask ([m] bool: False on shortfall padding), both drawn on
+    the host by data/cohort.sample_cohort and inputs of the captured
+    round, so one graph serves every round and every cohort. So, as in
+    JAX:
+
+    - the corrupt flags are real client ids, `(ids < num_corrupt) &
+      active` (`adversary_inputs`, `draw_faults`): the Defense/* cosine
+      split and the Faults/* rates follow cohort membership, not slot
+      position;
+    - a quarantined member leaves through the mask: `active &
+      quarantine_mask(ids)`;
+    - `active` always joins the participation mask (the padding is left
+      out of aggregation like a dropped client), so the fused kernel is
+      off (`_fused_applicable`), and under churn the away count is the
+      mask's complement (Churn/Sampled_Away)."""
+    device = torch.device(device)
+    trainer = make_block_trainer(cfg, model, normalize, None, None,
+                                 np.zeros(0, dtype=np.int32), device=device,
+                                 n_total=n_total)
+    slots = torch.arange(cfg.agents_per_round, device=device)
+    device_round = _device_round(
+        cfg, trainer, health_sentinel.quarantine_set(cfg, device))
+
+    def step(params, ids, active, imgs, lbls, slot_sizes, perms, keep,
+             noise, draw=None, hits=None, flags=None):
+        return device_round(params, slots, perms, keep, noise, draw,
+                            (imgs, lbls, slot_sizes), hits, flags, active,
+                            ids)
+    step.trainer = trainer
+    return step
+
+
+def make_cohort_round_fn(cfg, model, normalize, n_total: int, device,
+                         capture: Optional[bool] = None):
+    """Cohort-sampled round fn (JAX `make_cohort_round_fn`):
+    round(params, rng, ids, imgs, lbls, slot_sizes, active, host_sizes,
+    perms=None, dropout=True, faults=None) -> (params, {"train_loss",
+    "sampled", ... lanes}).
+
+    `ids` and `active` are round rng.round + 1's cohort
+    (data/cohort.sample_cohort), `imgs`, `lbls`, `slot_sizes` its gathered
+    rows on the round's device (CohortData.gather_cohort, or the dense
+    host stacks' rows), `host_sizes` the same sizes on the host (the slot
+    draws read them). Slot i draws from rng.slot(rnd, i), as slot i of
+    every other round does, and the fault draw spares the active corrupt
+    members. `capture` as in `make_round_fn`: on a CUDA device one graph
+    whose static inputs (the ids, the mask and the stacks among them)
+    each round refills."""
+    device = torch.device(device)
+    m = cfg.agents_per_round
+    cohort_step = make_cohort_step(cfg, model, normalize, n_total, device)
+    if capture is None:
+        capture = device.type == "cuda"
+    step = compile_cache.RoundGraph(cohort_step) if capture else cohort_step
+
+    def round_fn(params, rng: RoundRNG, ids, imgs, lbls, slot_sizes, active,
+                 host_sizes, perms: Optional[Sequence] = None,
+                 dropout: bool = True,
+                 faults: Optional[fmodel.FaultDraw] = None):
+        rnd = rng.next_round()
+        ids = [int(a) for a in ids]
+        active = np.array(active, dtype=bool)
+        if len(ids) != m or active.shape != (m,):
+            raise ValueError(f"the cohort round takes m={m} ids and an "
+                             f"[m] mask, got {len(ids)} and "
+                             f"{active.shape}")
+        _, slot_perms, keep = cohort_step.trainer.draw(
+            rng, rnd, ids, 0, m, perms, dropout, slot_sizes=host_sizes)
+        noise = draw_noise(params, cfg, rng.noise)
+        if faults is None:
+            faults = draw_faults(cfg, rng, rnd, ids, device, active)
+        ids_dev, act_dev = (_to_device(torch.as_tensor(a), device)
+                            for a in (np.asarray(ids, dtype=np.int64),
+                                      active))
+        new_params, info = step(
+            params, ids_dev, act_dev, imgs, lbls, slot_sizes, slot_perms,
+            keep, noise, faults,
+            *adversary_inputs(cfg, rnd, ids, device, active))
+        return new_params, {**info, "sampled": ids}
+
+    round_fn.graph = step if capture else None
+    return round_fn
+
+
+def make_chained_cohort_round_fn(cfg, model, normalize, n_total: int,
+                                 device):
+    """chained(params, rng, block) over this config's cohort round
+    (`make_chained_host`): each row of the block one round's (ids,
+    stacks, active, host sizes). Faults, update attacks and the
+    telemetry's split keep their flags, as in JAX's chained cohort scan,
+    which re-derives them from the scanned round index."""
+    return make_chained_host(make_cohort_round_fn(
+        cfg.replace(diagnostics=False), model, normalize, n_total, device))
+
+
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A small host tensor on `device`: from pinned memory without a sync
+    on a card."""
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -64,11 +64,35 @@ from `sample_ids` (a numpy generator seeded from the seed and the round,
 JAX's draw exactly), their shards are gathered into [m, ...] stacks and
 copied to the card (data/prefetch.HostGather), `--host_prefetch` rounds
 ahead on a worker thread (data/prefetch.RoundPrefetcher), and the round
-runs on them (fl/rounds.make_round_fn_host). The units whose rounds
-capture a graph (the first, and the first diagnostics snap round) are
-gathered in line. A chained or sharded host-sampled round is not ported
-yet, nor are checkpoints, diagnostics or the reputation lanes on the
-sharded round (`--reputation auto` resolves off there).
+runs on them (fl/rounds.make_round_fn_host). A chained unit's rounds are
+gathered as one [chain, m, ...] block and replayed one a row
+(fl/rounds.make_chained_host); under faults or an update attack the host
+round stays unchained, with JAX's line. The units whose rounds capture a
+graph (the first, and the first diagnostics snap round) are gathered in
+line. A sharded host-sampled round is not ported yet, nor are
+checkpoints, diagnostics or the reputation lanes on the sharded round
+(`--reputation auto` resolves off there).
+
+Cohort-sampled mode (JAX train.py:263-330, :392-470; `--cohort_sampled
+on`, or auto at 4,096 clients or more with a samplable cohort,
+utils/compile_cache.is_cohort_mode, decided from the config before any
+data is built): the population lives in a client bank on disk
+(data/registry.get_cohort_data, data/bank.py); each round's cohort ids
+and `active` mask are drawn on the host (data/cohort.sample_cohort, a
+pure function of the seeds and the round, so a resumed run draws the
+same cohorts), their rows gathered from the bank, poisoned where the
+member is corrupt, and copied to the card like the host round's
+(`_host_units`, data/prefetch.HostGather), and the round runs on them
+(fl/rounds.make_cohort_round_fn), the ids and mask inputs of its one
+captured graph; `--chain` gathers blocks as above. A host-sampled run
+under churn or diurnal traffic takes the cohort round over the dense
+host stacks, with JAX's line, or raises JAX's error when it cannot.
+Churn and traffic on the dense round mask its sampled ids (fl/rounds.
+presence); under churn the boundary writes Churn/Sampled_Away after the
+Faults/* rows (JAX train.py:1371-1373). Refused with their ROADMAP
+items: the sharded cohort round and churn or traffic on the sharded
+round (item 11), `--agg_mode buffered` and `--tenants` (item 12),
+`--chaos` (item 15).
 """
 
 from __future__ import annotations
@@ -83,12 +107,14 @@ import torch
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
     registry as attack_registry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
-    CHAINED_HOST_NOT_PORTED, RLR_ADAPT_NOT_PORTED, Config, args_parser,
-    print_exp_details)
+    RLR_ADAPT_NOT_PORTED, SHARDED_COHORT_NOT_PORTED, Config, args_parser,
+    check_not_ported, print_exp_details)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+    cohort as cohort_mod)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.prefetch import (
     HostGather, RoundPrefetcher)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
-    get_federated_data)
+    get_cohort_data, get_federated_data)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.common import (
     make_normalizer)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
@@ -96,7 +122,8 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.evaluate import (
     make_eval_fn, pad_eval_set)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
-    RoundRNG, make_chained, make_round_fn, make_round_fn_host)
+    RoundRNG, make_chained, make_chained_host, make_cohort_round_fn,
+    make_round_fn, make_round_fn_host)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     monitor as health_monitor, sentinel as health_sentinel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.registry import (
@@ -150,30 +177,64 @@ def dispatch_schedule(start, total, snap, chain_n, diagnostics, chaining):
     return units
 
 
-def sample_ids(cfg: Config, rnd: int) -> np.ndarray:
-    """Round rnd's m distinct agent ids in host-sampled mode: a generator
-    per round, so a resumed run would continue the same sequence (JAX
-    train.py's `sample_ids`, the same draws)."""
+def sample_ids(cfg: Config, rnd: int, cohort: bool = False) -> np.ndarray:
+    """Round rnd's m agent ids in host-sampled mode: m distinct ids from a
+    generator per round, so a resumed run continues the same sequence
+    (JAX train.py's `sample_ids`, the same draws); on a cohort run the
+    round's cohort (data/cohort.sample_cohort, a pure function of
+    cohort_seed, churn_seed, traffic_seed and the round), whose `active`
+    mask `sample_unit` gives beside it."""
+    if cohort:
+        return cohort_mod.sample_cohort_host(cfg, rnd)[0]
     rng = np.random.default_rng(cfg.seed * 100_003 + rnd)
     return rng.choice(cfg.num_agents, cfg.agents_per_round, replace=False)
 
 
-def _host_units(cfg: Config, fed, device, units, stack, say,
-                inline: int = 1):
-    """get_unit(unit) -> the unit's gathered `Payload` in host-sampled
-    mode. The first `inline` units are gathered in line: their rounds are
-    the ones whose CUDA graphs are captured (the first unit's, and under
-    --diagnostics the first snap round's), and no other thread may
+def sample_unit(cfg: Config, unit, cohort: bool = False):
+    """(ids, active) of a dispatch unit: one round's [m] or a chained
+    block's [chain, m]; active is None off the cohort round."""
+    if not cohort:
+        ids = np.stack([sample_ids(cfg, r) for r in unit])
+        return (ids[0], None) if len(unit) == 1 else (ids, None)
+    drawn = [cohort_mod.sample_cohort_host(cfg, r) for r in unit]
+    ids = np.stack([d[0] for d in drawn])
+    active = np.stack([d[1] for d in drawn])
+    return (ids[0], active[0]) if len(unit) == 1 else (ids, active)
+
+
+def unit_rounds(payload, cohort: bool = False):
+    """The round fn's arguments after (params, rng) for each round of a
+    gathered unit, in order: (ids, imgs, lbls, sizes), and on the cohort
+    round the `active` mask and the host sizes after them; a chained
+    block's rows are views of its [chain, m, ...] stacks."""
+    cols = list(payload.ready())
+    if cohort:
+        cols += [payload.active, payload.host_sizes]
+    if cols[0].ndim == 1:
+        return [tuple(cols)]
+    return [tuple(c[r] for c in cols) for r in range(cols[0].shape[0])]
+
+
+def _host_units(cfg: Config, source, device, units, stack, say,
+                inline: int = 1, cohort: bool = False):
+    """get_unit(unit) -> the unit's gathered `Payload` in host-sampled or
+    cohort mode: its ids drawn (`sample_unit`) and their rows gathered
+    from `source` (data/prefetch.HostGather: the dense host stacks, or the
+    cohort's `gather_cohort`), a chained unit's as one [chain, m, ...]
+    block. The first `inline` units are gathered in line: their rounds
+    are the ones whose CUDA graphs are captured (the first unit's, and
+    under --diagnostics the first snap round's), and no other thread may
     allocate or copy on the card while a stream captures. From the next
     on, with --host_prefetch N, a worker gathers up to N units ahead;
     `stack` closes it."""
-    gather = HostGather(fed.train, device)
+    gather = HostGather(source, device)
 
     def gather_unit(unit):
-        return gather(sample_ids(cfg, unit[0]))
+        return gather(*sample_unit(cfg, unit, cohort))
     if cfg.host_prefetch <= 0:
         return gather_unit
-    say(f"[prefetch] host->device pipeline, depth {cfg.host_prefetch}")
+    say(f"[prefetch] {'cohort gather' if cohort else 'host->device'} "
+        f"pipeline, depth {cfg.host_prefetch}")
     prefetcher = None
 
     def get_unit(unit):
@@ -214,6 +275,9 @@ def _agents_group(cfg: Config) -> Optional[AgentsGroup]:
 def _sharded_cfg(cfg: Config, say) -> Config:
     """cfg for the sharded round: what it has not ported refused, and
     `--reputation auto` resolved off, with a printed line."""
+    if (cfg.churn_enabled or cfg.traffic_enabled
+            or compile_cache.is_cohort_mode(cfg)):
+        raise ValueError(SHARDED_COHORT_NOT_PORTED)
     for flag, on in (("--diagnostics", cfg.diagnostics),
                      ("--checkpoint_dir", bool(cfg.checkpoint_dir)),
                      ("--resume", cfg.resume)):
@@ -292,6 +356,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     obs_reputation.check(cfg)
     if cfg.rlr_adapt == "on":
         raise ValueError(RLR_ADAPT_NOT_PORTED)
+    check_not_ported(cfg)
     if group is None:
         group = _agents_group(cfg)
     device = group.device if group is not None else resolve_device(
@@ -313,7 +378,23 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     if cfg.telemetry != "off":
         say(f"[telemetry] in-jit defense telemetry: {cfg.telemetry} "
             f"(Defense/* scalars ride the metrics stream)")
-    fed = get_federated_data(cfg)
+    # the config alone decides the cohort round first: a million-client
+    # population is never stacked densely to find out (JAX train.py:
+    # 263-286); the client bank holds it on disk, and `fed` carries a
+    # zero-client shape shim and the eval sets
+    cohort_mode = compile_cache.is_cohort_mode(cfg)
+    if (not cohort_mode and cfg.cohort_sampled == "auto"
+            and cfg.num_agents >= compile_cache.COHORT_AUTO_MIN_POPULATION):
+        say(f"[cohort] population {cfg.num_agents:,} is above the auto "
+            f"threshold but the implied cohort of {cfg.agents_per_round} "
+            f"cannot be sampled (data/cohort.py MAX_CANDIDATES); staying "
+            f"on the dense path — set --cohort_size to decouple "
+            f"population from cohort")
+    cohort_src = None
+    if cohort_mode:
+        cohort_src = fed = get_cohort_data(cfg)
+    else:
+        fed = get_federated_data(cfg)
     if fed.synthetic:
         say(f"[data] no {cfg.data} files under {cfg.data_dir!r}: "
             f"synthetic stand-in, {cfg.synth_train_size} train / "
@@ -358,20 +439,62 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                         tracker.load_state(entry.get("reputation") or None)
             say(f"[ckpt] resumed from round {start_round}")
     chain_n = compile_cache.chain_budget(cfg)
-    host_mode = compile_cache.is_host_mode(cfg, fed)
+    host_mode = not cohort_mode and compile_cache.is_host_mode(cfg, fed)
+    if host_mode and (cfg.churn_enabled or cfg.traffic_enabled):
+        # a host-sampled run under churn or traffic takes the cohort
+        # round, its cohorts drawn from the present set over the dense
+        # host stacks (JAX train.py:304-330)
+        what = "churn" if cfg.churn_enabled else "traffic"
+        if not compile_cache.is_cohort_mode(cfg, fed):
+            raise ValueError(
+                f"host-sampled + {what} needs the cohort program "
+                f"(cohorts sampled from the {what}-present set), but "
+                "this config cannot take it: --cohort_sampled is "
+                "'off', or the implied cohort of "
+                f"{cfg.agents_per_round} clients is not samplable "
+                "(data/cohort.py MAX_CANDIDATES) — set "
+                "--cohort_size, raise availability, or disable "
+                f"{what}")
+        cohort_mode, host_mode = True, False
+        say(f"[cohort] host-sampled + {what}: cohorts are sampled from the "
+            f"{what}-present set (the refusal path is retired)")
     # the snap rounds of --diagnostics run a second round fn, with the
     # plain server step and the diagnostics' extras; every other round
     # runs the round fn of cfg without them (JAX's plain/diag pair)
     plain_cfg = cfg.replace(diagnostics=False)
     diag_fn = None
-    if host_mode:
-        if chain_n > 1:
-            raise ValueError(CHAINED_HOST_NOT_PORTED)
-        if group is not None:
-            raise ValueError("the sharded host-sampled round is not ported "
-                             "yet")
+    source = None       # what a host-sampled or cohort unit gathers from
+    if (host_mode or cohort_mode) and group is not None:
+        raise ValueError(SHARDED_COHORT_NOT_PORTED if cohort_mode else
+                         "the sharded host-sampled round is not ported yet "
+                         "(ROADMAP queue 1 item 11)")
+    if cohort_mode:
+        m = cfg.agents_per_round
+        if cohort_src is not None:
+            say(f"[cohort] population {cfg.num_agents:,} clients -> {m}-"
+                f"client cohorts ({cfg.partitioner} client bank, "
+                f"{cohort_src.max_n} rows/cohort member; drawn on the "
+                f"host, cohort_seed {cfg.cohort_seed})")
+            source, n_total = cohort_src.gather_cohort, cohort_src.max_n
+        else:
+            say(f"[cohort] {cfg.num_agents} clients -> {m}-client cohorts "
+                f"sampled from the churn-present set over the host shard "
+                f"stacks")
+            source, n_total = fed.train, fed.train.max_n
+
+        def build(c):
+            return make_cohort_round_fn(c, model, normalize, n_total, device)
+    elif host_mode:
         say(f"[data] host-sampled mode "
             f"({fed.train.images.nbytes / 2**30:.1f} GiB of shards)")
+        if chain_n > 1 and compile_cache.chain_budget(cfg, True) == 1:
+            tag, why = (("faults", "faults") if cfg.faults_enabled
+                        else ("attack", f"--attack {cfg.attack}"))
+            say(f"[{tag}] host-sampled mode: --chain disabled ({why} needs "
+                f"per-round corrupt flags riding each dispatch)")
+            chain_n = 1
+        source = fed.train
+
         def build(c):
             return make_round_fn_host(c, model, normalize, fed.train.sizes,
                                       fed.train.max_n, device)
@@ -414,9 +537,12 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                        for a in pad_eval_set(x, y, cfg.eval_bs))
                  for x, y in ((fed.val_images, fed.val_labels),
                               (fed.pval_images, fed.pval_labels)))
-    chained = make_chained(round_fn) if chain_n > 1 else None
-    if chained is not None:
-        say(f"[chain] {chain_n} rounds per dispatch")
+    gathered = source is not None
+    chained = None
+    if chain_n > 1:
+        chained = (make_chained_host if gathered else make_chained)(round_fn)
+        say(f"[chain] {chain_n} rounds per dispatch"
+            + (" (gathered blocks)" if gathered else ""))
     units = dispatch_schedule(start_round, cfg.rounds, cfg.snap, chain_n,
                               cfg.diagnostics, chained is not None)
 
@@ -428,20 +554,22 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     with (MetricsWriter(cfg.log_dir, run_name(cfg), cfg.tensorboard)
           if lead else contextlib.nullcontext()) as writer, \
             contextlib.ExitStack() as stack:
-        if host_mode:
+        if gathered:
             # gathered in line up to the first snap round of --diagnostics:
             # its round fn's graph is captured there
             inline = 1 + next((i for i, u in enumerate(units)
                                if diag_unit(u)), 0)
-            get_unit = _host_units(cfg, fed, device, units, stack, say,
-                                   inline)
+            get_unit = _host_units(cfg, source, device, units, stack, say,
+                                   inline, cohort_mode)
         _sync(device)
         t_loop = time.perf_counter()
         t_steady = r_steady = None
         for unit in units:
             want_diag = diag_unit(unit)
             if len(unit) > 1:
-                params, stacked = chained(params, rng, len(unit))
+                params, stacked = chained(
+                    params, rng, unit_rounds(get_unit(unit), cohort_mode)
+                    if gathered else len(unit))
                 info = {k: v[-1] for k, v in stacked.items()}
                 if tracker is not None:
                     rep_pending.append((unit, stacked["sampled"],
@@ -453,8 +581,9 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                 # a replay overwrites
                 prev = ({k: v.clone() for k, v in params.items()}
                         if want_diag else None)
-                if host_mode:
-                    params, info = fn(params, rng, *get_unit(unit).ready())
+                if gathered:
+                    (args,) = unit_rounds(get_unit(unit), cohort_mode)
+                    params, info = fn(params, rng, *args)
                 else:
                     params, info = fn(params, rng)
                 if tracker is not None:
@@ -489,7 +618,8 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                 ("train_loss", info["train_loss"]),
                 *((k, info[k])
                   for k in health_sentinel.boundary_keys(cfg)),
-                *((k, info[k]) for k in FAULT_TAGS if k in info))}
+                *((k, info[k]) for k in FAULT_TAGS if k in info),
+                *((k, info[k]) for k in ("churn_away",) if k in info))}
             # the defense telemetry rides the same sync; the margin
             # histogram comes back as a list
             vals.update({k: v.tolist() for k, v in info.items()

@@ -2,8 +2,9 @@
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 utils/compile_cache.py`, reduced to the fields the port has:
-`resolved_train_layout`, `chain_budget`, and the host-sampled decision
-(`DEVICE_RESIDENT_BYTES`, `is_host_mode`). The JAX module's AOT bank,
+`resolved_train_layout`, `chain_budget`, the host-sampled decision
+(`DEVICE_RESIDENT_BYTES`, `is_host_mode`) and the cohort-sampled one
+(`COHORT_AUTO_MIN_POPULATION`, `is_cohort_mode`). The JAX module's AOT bank,
 fingerprints and program families wait for the port's program cache.
 
 `RoundGraph` holds the counterpart of the JAX round being one jitted XLA
@@ -18,13 +19,17 @@ from typing import Callable, Dict
 import torch
 from torch.utils import _pytree as pytree
 
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
+    registry as attack_registry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
     TRAIN_LAYOUTS)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops import (
     rlr_fused)
 
-# graph replays by this process, for a run to show its rounds were replays
+# graph replays and captures by this process, for a run to show its rounds
+# were replays of one graph
 GRAPH_REPLAYS = {"round": 0}
+GRAPH_CAPTURES = {"round": 0}
 
 # above this many stacked-array bytes the driver switches to host-side
 # per-round shard gathering (the fedemnist path), as JAX decides it
@@ -43,12 +48,17 @@ def resolved_train_layout(cfg) -> str:
     return cfg.train_layout
 
 
-def chain_budget(cfg) -> int:
-    """Rounds per dispatch: --chain capped at --snap, so a chained block
-    never crosses an eval boundary, and at snap - 1 under --diagnostics,
-    whose snap rounds run unchained (JAX's budget; a chained host-sampled
-    round is not ported, and train.run refuses --chain > 1 there)."""
-    return max(1, min(cfg.chain, cfg.snap - (1 if cfg.diagnostics else 0)))
+def chain_budget(cfg, host_mode: bool = False) -> int:
+    """Rounds per dispatch (JAX's budget): --chain capped at --snap, so a
+    chained block never crosses an eval boundary, and at snap - 1 under
+    --diagnostics, whose snap rounds run unchained; 1 on the host-sampled
+    round (`host_mode`) under faults or an update attack, whose per-round
+    corrupt flags JAX's chained host scan cannot carry (train.run prints
+    why). The cohort round keeps its chain under both."""
+    n = max(1, min(cfg.chain, cfg.snap - (1 if cfg.diagnostics else 0)))
+    if host_mode and (cfg.faults_enabled or attack_registry.in_jit(cfg)):
+        return 1
+    return n
 
 
 def is_host_mode(cfg, fed) -> bool:
@@ -57,6 +67,37 @@ def is_host_mode(cfg, fed) -> bool:
     return (cfg.host_sampled == "on"
             or (cfg.host_sampled == "auto"
                 and fed.train.images.nbytes > DEVICE_RESIDENT_BYTES))
+
+
+# populations at or above this take the cohort-sampled round under
+# --cohort_sampled auto: a dense [K, max_n, ...] stack of 4096+ clients is
+# the wrong layout, and the paper's configs (K <= 40, Fed-EMNIST's 3,383)
+# stay on their dense rounds
+COHORT_AUTO_MIN_POPULATION = 4096
+
+
+def is_cohort_mode(cfg, fed=None) -> bool:
+    """The driver's cohort-sampled decision (JAX `is_cohort_mode`). Without
+    `fed`, the config alone: on/off as asked, and under auto a population
+    of COHORT_AUTO_MIN_POPULATION or more whose implied cohort is smaller
+    than the population and samplable (decided before any data is built:
+    a million-client population is never stacked densely to find out).
+    With `fed`, a host-sampled run under churn or diurnal traffic also
+    takes the cohort round, its cohorts drawn from the present set over
+    the dense host stacks, when its cohort is samplable."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+        cohort)
+    if cfg.cohort_sampled == "on":
+        return True
+    if cfg.cohort_sampled == "off":
+        return False
+    if cfg.num_agents >= COHORT_AUTO_MIN_POPULATION:
+        return (cfg.agents_per_round < cfg.num_agents
+                and cohort.cohort_feasible(cfg))
+    if fed is not None and (cfg.churn_enabled or cfg.traffic_enabled) \
+            and is_host_mode(cfg, fed):
+        return cohort.cohort_feasible(cfg)
+    return False
 
 
 def _spec(x):
@@ -143,4 +184,5 @@ class RoundGraph:
                             for k, n in rlr_fused.CAPTURED.items()
                             if n != captured[k]}
         self.graph = graph
+        GRAPH_CAPTURES["round"] += 1
         return result

@@ -17,7 +17,8 @@ The Health/* rows come from health/monitor.emit_rows (its `TAGS` are the
 one source of their names), all five of JAX's: the three lanes, the loss
 z-score and the norm-spike bit. `FAULT_TAGS` are the Faults/* rows JAX's
 train.py:1362-1370 writes from a faults round's scalars
-(faults/model.fault_scalars), in that order.
+(faults/model.fault_scalars), in that order, and `CHURN_TAG` the row it
+writes after them under churn (train.py:1371-1373).
 """
 
 from __future__ import annotations
@@ -36,20 +37,47 @@ FAULT_TAGS = dict(zip(FAULT_INFO_KEYS, ("Faults/Dropped", "Faults/Straggled",
                                         "Faults/Effective_Voters")))
 
 
+CHURN_TAG = "Churn/Sampled_Away"
+
+
 def fault_rows(vals) -> dict:
     """{tag: value} of the fault scalars in a boundary's host values
-    (empty without faults)."""
-    if "fault_voters" not in vals:
-        return {}
-    return {tag: vals[key] for key, tag in FAULT_TAGS.items()}
+    (empty without faults or churn), then under churn the sampled clients
+    away (JAX train.py:1362-1373)."""
+    rows = ({} if "fault_voters" not in vals
+            else {tag: vals[key] for key, tag in FAULT_TAGS.items()})
+    if "churn_away" in vals:
+        rows[CHURN_TAG] = vals["churn_away"]
+    return rows
 
 
 def run_name(cfg) -> str:
     """Hyperparam-derived run dir name (reference src/federated.py:27-31,
-    without its time prefix): a pure function of the config. A non-static
-    attack adds JAX's `-atk:` cell (strategy, boost, poison_frac, and the
-    schedule when it is not trivial), so scenario cells differing only in
+    without its time prefix): a pure function of the config. Churn,
+    diurnal traffic and the cohort round add JAX's `-chrn:`, `-tfc:` and
+    `-coh:` cells (population, cohort, partitioner, cohort seed), and a
+    non-static attack JAX's `-atk:` cell (strategy, boost, poison_frac,
+    and the schedule when it is not trivial), so runs differing only in
     those do not share a run dir."""
+    churn = traffic = cohort = ""
+    if cfg.churn_enabled:
+        churn = (f"-chrn:a{cfg.churn_available}p{cfg.churn_period}"
+                 f"s{cfg.churn_seed}")
+    if cfg.traffic_enabled:
+        traffic = (f"-tfc:{cfg.traffic}p{cfg.traffic_peak_frac}"
+                   f"t{cfg.traffic_trough_frac}d{cfg.traffic_day_rounds}"
+                   f"s{cfg.traffic_seed}")
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
+        compile_cache)
+    if compile_cache.is_cohort_mode(cfg) or cfg.churn_enabled:
+        part = cfg.partitioner
+        if part == "dirichlet":
+            part += f":a{cfg.dirichlet_alpha}n{cfg.samples_per_client}"
+        elif part == "pathological":
+            part += (f":c{cfg.classes_per_client}"
+                     f"n{cfg.samples_per_client}")
+        cohort = (f"-coh:K{cfg.num_agents}m{cfg.agents_per_round}"
+                  f"-{part}-cs{cfg.cohort_seed}")
     atk = ""
     if cfg.attack != "static":
         atk = f"-atk:{cfg.attack}b{cfg.attack_boost}p{cfg.poison_frac}"
@@ -60,7 +88,8 @@ def run_name(cfg) -> str:
             f"-noise_std:{cfg.noise}-aggr:{cfg.aggr}"
             f"-s_lr:{cfg.effective_server_lr}-num_cor:{cfg.num_corrupt}"
             f"-thrs_robustLR:{cfg.robustLR_threshold}"
-            f"-pttrn:{cfg.pattern_type}-seed:{cfg.seed}{atk}")
+            f"-pttrn:{cfg.pattern_type}-seed:{cfg.seed}"
+            f"{churn}{traffic}{cohort}{atk}")
 
 
 class MetricsWriter:

@@ -236,7 +236,7 @@ def test_host_sampling_prefetch_and_cli(tmp_path, capsys):
 
     # refusals: what this port has not ported yet, and JAX's own error for
     # a --host_sampled value that is not a choice
-    for argv in (["--remat"], ["--chain", "2", "--host_sampled", "on"],
+    for argv in (["--remat"], ["--agg_mode", "buffered"],
                  ["--rlr_adapt", "on"]):
         with pytest.raises(ValueError, match="not ported yet"):
             train.args_parser(argv)

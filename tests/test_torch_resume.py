@@ -10,9 +10,9 @@ in the journal) and `--diagnostics` (cum_net_mov in the checkpoint, the
 snap rounds' second round fn). The schedule re-enters mid-chain: rounds
 6-8 are one chained block, then 9 and the diagnostics snap round 10
 (`dispatch_schedule`). Parametrised over the device-resident round and
-the host-sampled round (`--host_sampled on --host_prefetch 2`; the
-chained host-sampled round is not ported, so that run dispatches one
-round at a time).
+the host-sampled round (`--host_sampled on --host_prefetch 2`, one
+round a dispatch; tests/test_torch_chain_host.py holds the chained host
+round to it).
 
 Held, exactly (eager on the CPU: the same ops on the same inputs): the
 final params bit for bit, `[ckpt] resumed from round 5` printed, and
