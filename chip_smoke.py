@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives the port (`defending_against_backdoors_with_robust_learning_rate_tpu_torch`,
-never the JAX package) through seventeen phases and exits non-zero if any
+never the JAX package) through eighteen phases and exits non-zero if any
 fails (`--phases a,b` runs the build and just those phases, a rehearsal
 that prints no result lines):
 
@@ -172,10 +172,26 @@ that prints no result lines):
     rows == dense rows, 2 cohort rounds == the dense round on the same
     ids, bit for bit); the chained host round (Fed-EMNIST host-sampled,
     4 rounds at --chain 2 == --chain 1 bit for bit, K1 once a round).
+18. precision: the compute dtype, ResNet-9's remat, the metrics drain
+    and the native host runtime on BASELINE.json config 3 at full width
+    (CIFAR-10 DBA, 40 agents, 4 corrupt, RLR 8, ResNet-9), each run
+    counted as above: 2 rounds each of --remat --agent_chunk 10 (JAX's
+    ResNet-9 rows), --remat_policy conv and --dtype bf16 (K1 once a
+    round, inside the replay); 4 rounds of the FMNIST attack + RLR 4 run
+    at --dtype bf16 with the drain and with --sync_metrics (cuDNN
+    deterministic: metrics.jsonl the same apart from its wall-clock
+    rows); K1 against its plain version on the bf16 round's f32 updates
+    (m = 40); one batched ResNet-9 step at m = 10 with block remat, conv
+    remat and none (cuDNN deterministic, grads bit for bit), with its
+    time and peak memory and one agent's forward stash and backward
+    peak, and at m = 40 with and without remat; each
+    model's bf16 step against its f32 step; the native library built
+    from native/fl_host.cc on the card's host, its partition and pack
+    of the FMNIST stand-in equal to the numpy twins', timed.
 
 The last two lines of standard output are one JSON object per kernel
 (`{"kernels": [...]}`; K1's `launches` counts every main-path run of
-phases 5, 10, 11, 13, 14, 15, 16 and 17, by path in `launches_by_path`
+phases 5, 10, 11, 13, 14, 15, 16, 17 and 18, by path in `launches_by_path`
 (phase 13's paths and phase 17's `population` at 0: their server step
 is the plain one; phase 17's `chain host` once a round), `shapes`
 holds phase 12's timings and `attack_stacks` phase 14's; K2's counts the
@@ -3157,6 +3173,282 @@ def equal_cohort_check(cfg):
 
 # every config field the federated data's build reads (data/registry.py,
 # attack/dba.py, attack/patterns.py)
+PRECISION_DIR = "build/chip_smoke/precision"
+PRECISION_CHUNK = 10        # JAX's ResNet-9 rows: --remat --agent_chunk 10
+# JAX's own bf16-to-f32 gap of one step's grads (relative L2), measured
+# with the JAX package on the CPU (CNN_MNIST on [8,28,28,1], ResNet-9 on
+# [4,32,32,3], seed 0): the scale the card's bf16 step is held to, within
+# twice it (other inputs and batch sizes move the gap itself)
+BF16_GRAD_GAP = {"CNN_MNIST": 2.0e-2, "ResNet9": 1.3e-1}
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def precision_cfgs():
+    """BASELINE.json config 3 (resnet9_cfg) as JAX ran its ResNet-9 rows
+    (scripts/run_baselines.py:298-317), under each remat policy and at
+    bf16; and the FMNIST attack + RLR 4 run at bf16."""
+    base = resnet9_cfg().replace(remat=True, agent_chunk=PRECISION_CHUNK,
+                                 log_dir=f"{PRECISION_DIR}/logs")
+    fm = triple()["attack_rlr4"].replace(dtype="bf16",
+                                         log_dir=f"{PRECISION_DIR}/fmnist")
+    return {"resnet9 remat block": base,
+            "resnet9 remat conv": base.replace(remat_policy="conv"),
+            "resnet9 remat bf16": base.replace(dtype="bf16"),
+            "fmnist bf16": fm}
+
+
+def batched_step(model, params, x, y):
+    """One vmap(grad_and_value) step of the batched trainer's loss over the
+    stacked [m, ...] params: (grads, losses)."""
+    from torch.func import functional_call, grad_and_value, vmap
+
+    def loss(p, x, y):
+        return torch.nn.functional.cross_entropy(
+            functional_call(model, p, (x,)), y)
+    return vmap(grad_and_value(loss))(params, x, y)
+
+
+def step_inputs(arch, data, image, m, seed=0):
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry)
+    model = registry.get_model(data, image, arch=arch)
+    params = registry.init_params(model, seed, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    h, w, c = image
+    x = torch.randn((m, 256, c, h, w), generator=gen, device=DEVICE)
+    y = torch.randint(0, 10, (m, 256), generator=gen, device=DEVICE)
+    stacked = {k: v.expand((m,) + v.shape).clone() for k, v in params.items()}
+    return stacked, x, y
+
+
+def step_peak_gib(model, params, x, y):
+    """Peak device memory of one batched step above what was held before
+    it, and the step's median time (CUDA events, 5 reps)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = batched_step(model, params, x, y)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    del out
+    ms = time_ms(lambda: batched_step(model, params, x, y), lambda: None,
+                 reps=5, warmup=1)
+    return peak, ms
+
+
+def stash_and_peak_gib(model, params, x, y):
+    """One agent's step through torch.func.vjp: (device memory the forward
+    leaves live for the backward, peak of the backward above that)."""
+    from torch.func import functional_call, vjp
+
+    def loss(p):
+        return torch.nn.functional.cross_entropy(
+            functional_call(model, p, (x,)), y)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    out, pull = vjp(loss, params)
+    torch.cuda.synchronize()
+    stash = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = pull(torch.ones_like(out))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - stash
+    del out, pull, grads
+    return (stash - held) / 2 ** 30, peak / 2 ** 30
+
+
+def phase_precision(rlr_fused, record) -> None:
+    """Slice 10: the compute dtype, ResNet-9's remat, the metrics drain and
+    the native host runtime, on BASELINE.json config 3 at full width
+    (CIFAR-10 DBA, 40 agents all sampled, 4 corrupt, RLR 8, ResNet-9).
+    Each run through train.run with its counts set to 0 just before and
+    read just after (K1 once a round, every round after the first a
+    replay): 2 rounds each of --remat --agent_chunk 10 (JAX's ResNet-9
+    rows), the same with --remat_policy conv and at --dtype bf16; 4 rounds
+    of the FMNIST attack + RLR 4 run at --dtype bf16 with the drain and
+    with --sync_metrics (cuDNN deterministic: metrics.jsonl the same
+    apart from the wall-clock rows). Then K1 against its plain version on
+    the bf16 ResNet-9 round's updates (m = 40); one batched ResNet-9 step
+    at m = 10 with block remat, conv remat and none (cuDNN deterministic:
+    grads bit for bit), its time and peak memory, one agent's forward
+    stash and backward peak, and at m = 40 with and without remat; each
+    model's bf16 step against its f32 step within twice JAX's
+    own bf16-to-f32 gap (BF16_GRAD_GAP); the native host runtime built from
+    native/fl_host.cc on the card's host and its partition and pack of
+    the FMNIST stand-in equal to the numpy twins', timed."""
+    import shutil
+
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
+        closing_check)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+        arrays, native, partition)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.registry import (
+        get_datasets, get_federated_data)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        common, rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models import (
+        registry)
+
+    shutil.rmtree(PRECISION_DIR, ignore_errors=True)
+    # the native host runtime, built on this host from the checkout
+    t0 = time.perf_counter()
+    status = native.status()
+    build_s = time.perf_counter() - t0
+    if not status.startswith("native ("):
+        raise AssertionError(f"native host runtime not used: {status}")
+    fm = precision_cfgs()["fmnist bf16"]
+    train_set = get_datasets(fm)[0]
+    timed = {}
+    for label, dist, pack in (("native", native.distribute_data,
+                               native.pack_shards),
+                              ("numpy", partition.distribute_data,
+                               arrays.stack_agent_shards)):
+        t0 = time.perf_counter()
+        groups = dist(train_set.labels, fm.num_agents)
+        t1 = time.perf_counter()
+        shards = pack(train_set.images, train_set.labels, groups,
+                      fm.num_agents, fm.bs)
+        timed[label] = (groups, shards, t1 - t0, time.perf_counter() - t1)
+    (g_n, s_n, *t_n), (g_p, s_p, *t_p) = timed["native"], timed["numpy"]
+    if g_n != g_p or not all(np.array_equal(getattr(s_n, f), getattr(s_p, f))
+                             for f in ("images", "labels", "sizes")):
+        raise AssertionError("native partition or pack != numpy twins")
+    log(f"[precision] native host runtime: {status}, loaded in "
+        f"{build_s:.2f} s; FMNIST stand-in ({len(train_set)} samples, "
+        f"K={fm.num_agents}): partition {t_n[0] * 1e3:.1f} ms native / "
+        f"{t_p[0] * 1e3:.1f} ms numpy, pack {t_n[1] * 1e3:.1f} / "
+        f"{t_p[1] * 1e3:.1f} ms, equal")
+
+    card = closing_check.card()
+    launches, runs = 0, {}
+    for label, cfg in precision_cfgs().items():
+        if label == "fmnist bf16":
+            with cudnn_deterministic():
+                s = drive(rlr_fused, f"precision {label}", cfg)
+                launches += s["launches"]
+                sync_cfg = cfg.replace(async_metrics=False,
+                                       log_dir=f"{PRECISION_DIR}/fmnist_sync")
+                s_sync = drive(rlr_fused, f"precision {label} sync",
+                               sync_cfg)
+                launches += s_sync["launches"]
+            rows, rows_sync = state_rows(cfg), state_rows(sync_cfg)
+            if rows != rows_sync or len(rows) < 14:
+                raise AssertionError(
+                    f"drain rows != --sync_metrics rows ({len(rows)} / "
+                    f"{len(rows_sync)})")
+            log(f"[precision] FMNIST bf16: metrics.jsonl with the drain == "
+                f"with --sync_metrics, {len(rows)} rows (wall-clock rows "
+                f"aside)")
+        else:
+            s = drive(rlr_fused, f"precision {label}", cfg)
+            launches += s["launches"]
+        runs[label] = s
+    for label, s in runs.items():
+        log(f"[precision] {label}: {s['steady_rounds_per_sec']:.4f} steady "
+            f"rounds/s (eval included), run peak {s['peak_gib']:.2f} GiB, "
+            f"val_acc {s['val_acc']:.4f}, poison_acc {s['poison_acc']:.4f} "
+            f"({card})")
+    record["launches_by_path"]["precision"] = launches
+
+    # K1 on the bf16 ResNet-9 round's updates (the params stay f32)
+    cfg = precision_cfgs()["resnet9 remat bf16"]
+    fed = get_federated_data(cfg)
+    norm = common.make_normalizer(fed.mean, fed.std, DEVICE)
+    images = torch.from_numpy(fed.train.images).to(DEVICE)
+    labels = torch.from_numpy(fed.train.labels).to(DEVICE, torch.int64)
+    model = registry.get_model(cfg.data, cfg.image_shape, arch=cfg.arch,
+                               dtype=cfg.dtype, remat=True)
+    params = registry.init_params(model, cfg.seed, DEVICE)
+    rng = rounds.RoundRNG(cfg.seed, DEVICE)
+    sampled = rounds.sample_agents(cfg, rng.host).tolist()
+    updates, _ = rounds.make_block_trainer(
+        cfg, model, norm, images, labels, fed.train.sizes)(
+            params, rng, rng.next_round(), sampled, 0, len(sampled))
+    if any(u.dtype != torch.float32 for u in updates.values()):
+        raise AssertionError("bf16 updates are not f32")
+    sizes = torch.as_tensor(fed.train.sizes[sampled], device=DEVICE)
+    err = k1_against_plain(rlr_fused, params, updates, sizes, 8.0)
+    record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+    log(f"[precision] K1 on the bf16 ResNet-9 round's f32 updates (m="
+        f"{len(sampled)}): max |kernel - plain| {err:.3e}")
+    del updates, images, labels
+
+    # one batched ResNet-9 step at m = 10: remat bit for bit, time, memory
+    image = cfg.image_shape
+    params, x, y = step_inputs("resnet9", "cifar10", image, PRECISION_CHUNK)
+    out = {}
+    with cudnn_deterministic():
+        for policy in (None, "block", "conv"):
+            model = registry.get_model("cifar10", image, arch="resnet9",
+                                       remat=policy is not None,
+                                       remat_policy=policy or "block")
+            grads, losses = batched_step(model, params, x, y)
+            torch.cuda.synchronize()
+            out[policy] = (grads, losses)
+            peak, ms = step_peak_gib(model, params, x, y)
+            stash, bwd = stash_and_peak_gib(
+                model, {k: v[0] for k, v in params.items()}, x[0], y[0])
+            log(f"[precision] ResNet-9 batched step m={PRECISION_CHUNK}, "
+                f"remat {policy or 'off'}: {ms:.1f} ms, peak "
+                f"{peak:.2f} GiB; one agent's step: the forward leaves "
+                f"{stash:.3f} GiB for the backward, whose peak is "
+                f"{bwd:.3f} GiB above that (cuDNN deterministic; {card})")
+    for policy in ("block", "conv"):
+        g, lo = out[policy]
+        bad = [k for k in g if not torch.equal(g[k], out[None][0][k])]
+        if bad or not torch.equal(lo, out[None][1]):
+            raise AssertionError(f"remat {policy} grads != plain: {bad}")
+    log("[precision] remat block and conv grads == plain, bit for bit "
+        "(26 leaves, cuDNN deterministic)")
+    del out
+    params40, x40, y40 = step_inputs("resnet9", "cifar10", image, 40)
+    for remat in (True, False):
+        model = registry.get_model("cifar10", image, arch="resnet9",
+                                   remat=remat)
+        what = (f"[precision] ResNet-9 batched step m=40 (all agents), "
+                f"remat {'block' if remat else 'off'}")
+        try:
+            peak, ms = step_peak_gib(model, params40, x40, y40)
+        except torch.cuda.OutOfMemoryError:
+            log(f"{what}: does not fit")
+            torch.cuda.empty_cache()
+            continue
+        log(f"{what}: {ms:.1f} ms, peak {peak:.2f} GiB")
+    del params40, x40, y40
+
+    # bf16 against f32, one step of each model
+    for arch, data, img in (("resnet9", "cifar10", image),
+                            ("cnn", "fmnist", (28, 28, 1))):
+        params, x, y = step_inputs(arch, data, img, PRECISION_CHUNK)
+        flat = {}
+        for dtype in ("f32", "bf16"):
+            model = registry.get_model(data, img, arch=arch, dtype=dtype)
+            grads, _ = batched_step(model, params, x, y)
+            flat[dtype] = torch.cat([g.reshape(-1) for g in grads.values()])
+            _, ms = step_peak_gib(model, params, x, y)
+            log(f"[precision] {type(model).__name__} batched step m="
+                f"{PRECISION_CHUNK} at {dtype}: {ms:.1f} ms ({card})")
+        name = type(model).__name__
+        rel = float((flat["bf16"] - flat["f32"]).norm()
+                    / flat["f32"].norm())
+        log(f"[precision] {name} bf16 step's grads vs f32: {rel:.3e} "
+            f"relative L2 (JAX's own gap on the CPU {BF16_GRAD_GAP[name]})")
+        if not rel <= 2 * BF16_GRAD_GAP[name]:
+            raise AssertionError(f"{name}: bf16 grads {rel} from f32")
+
+
 DATA_FIELDS = ("data", "data_dir", "num_agents", "num_corrupt", "poison_frac",
                "pattern_type", "base_class", "target_class", "seed", "bs",
                "synth_train_size", "synth_val_size", "synth_hardness",
@@ -3250,7 +3542,8 @@ def main(argv=None) -> int:
               ("attack", lambda: phase_attack(rlr_fused, record, st)),
               ("acceptance", lambda: phase_acceptance(rlr_fused, record)),
               ("state", lambda: phase_state(rlr_fused, record, st)),
-              ("population", lambda: phase_population(rlr_fused, record)))
+              ("population", lambda: phase_population(rlr_fused, record)),
+              ("precision", lambda: phase_precision(rlr_fused, record)))
     unknown = set(only) - {label for label, _ in phases}
     if unknown:
         print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)

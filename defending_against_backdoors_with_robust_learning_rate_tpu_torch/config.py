@@ -7,7 +7,8 @@ the quarantine set and the health monitor's policy, slice 7's attack
 registry and schedule, the watermark patterns, the defense telemetry and
 the TensorBoard sink, slice 8's checkpoint and resume, the reputation
 lanes and tracker, and the reference's diagnostics, slice 9's population
-axis: churn, the cohort and its client bank, diurnal traffic).
+axis: churn, the cohort and its client bank, diurnal traffic, slice 10's
+compute dtype, ResNet-9 rematerialization and the async metrics drain).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
@@ -34,6 +35,8 @@ from typing import Optional
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
     registry as attack_registry)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+    native)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.bank import (
     PARTITIONERS)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.traffic import (
@@ -89,6 +92,17 @@ class Config:
     synth_val_size: int = 512
     synth_hardness: float = 0.0
     arch: str = "auto"              # auto | cnn | resnet9
+    dtype: str = "f32"              # f32 | bf16: the models' compute dtype
+                                    # (params, grads and updates stay f32)
+    remat: bool = False             # ResNet-9's blockwise
+                                    # rematerialization (models/remat.py):
+                                    # backward recomputes each block's
+                                    # activations instead of keeping them
+                                    # (exact; the CNNs ignore it)
+    remat_policy: str = "block"     # block: recompute everything per block;
+                                    # conv: keep the convolutions' outputs
+                                    # and recompute only the GroupNorm,
+                                    # relu and pool tail
     # --- multi-card (JAX parallel/multihost.py, parallel/mesh.py) ---
     coordinator: str = ""           # host:port of rank 0's rendezvous
     num_processes: int = 0          # total processes (one per card)
@@ -229,6 +243,14 @@ class Config:
     tenants: int = 0                # tenant packs (not ported)
     chaos: str = ""                 # the service driver's drills (not
                                     # ported)
+    # --- metrics (JAX utils/metrics.MetricsDrain) ---
+    async_metrics: bool = True      # a boundary's scalars are fetched and
+                                    # written on a background thread (one
+                                    # batched device-to-host copy), so the
+                                    # round loop never waits on them;
+                                    # --sync_metrics opts out. Diagnostics
+                                    # and sharded runs are always
+                                    # synchronous
     # --- port-only ---
     device: str = "cuda"
     use_fused: bool = True
@@ -304,7 +326,8 @@ def build_parser() -> argparse.ArgumentParser:
                       "attack_every", "rlr_adapt", "rlr_adapt_every",
                       "telemetry", "tensorboard", "reputation",
                       "diagnostics", "resume", "cohort_sampled",
-                      "partitioner", "bank_verify", "traffic", "agg_mode"):
+                      "partitioner", "bank_verify", "traffic", "agg_mode",
+                      "remat", "remat_policy", "async_metrics"):
             continue
         p.add_argument(f"--{f.name}", type=type(getattr(d, f.name)),
                        default=getattr(d, f.name))
@@ -390,8 +413,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "(auto: stacks above the 2 GiB device-resident "
                         "budget gather on host per round)")
     p.add_argument("--remat", action="store_true",
-                   help="JAX's rematerialization of the model forward "
-                        "(refused: not ported yet)")
+                   help="blockwise rematerialization of the model forward "
+                        "(ResNet-9): recompute activations in backward "
+                        "instead of stashing them — exact, saves HBM")
+    p.add_argument("--remat_policy", type=str, default=d.remat_policy,
+                   choices=("block", "conv"),
+                   help="remat flavor: block = recompute everything; conv "
+                        "= save conv (MXU) outputs, recompute only the "
+                        "elementwise tail")
+    p.add_argument("--sync_metrics", action="store_true",
+                   help="force the synchronous metrics path (float() host "
+                        "sync every eval boundary) instead of the async "
+                        "background drain")
     p.add_argument("--cohort_sampled", choices=COHORT_SAMPLED,
                    default=d.cohort_sampled,
                    help="population/cohort decoupling (data/bank.py + "
@@ -430,9 +463,11 @@ def args_parser(argv: Optional[list] = None) -> Config:
     what the port does not run yet and naming the missing piece."""
     ns = build_parser().parse_args(argv)
     kw = {k: v for k, v in vars(ns).items()
-          if k not in ("no_fused", "remat", "debug_nan", "no_tensorboard")}
+          if k not in ("no_fused", "debug_nan", "no_tensorboard",
+                       "sync_metrics")}
     cfg = Config(use_fused=not ns.no_fused,
-                 tensorboard=not ns.no_tensorboard, **kw)
+                 tensorboard=not ns.no_tensorboard,
+                 async_metrics=not ns.sync_metrics, **kw)
     if ns.debug_nan:
         raise ValueError("--debug_nan (JAX's checkify float checks in the "
                          "round) is not ported yet; the health lanes and "
@@ -460,9 +495,6 @@ def args_parser(argv: Optional[list] = None) -> Config:
     reputation.check(cfg)
     if cfg.rlr_adapt == "on":
         raise ValueError(RLR_ADAPT_NOT_PORTED)
-    if ns.remat:
-        raise ValueError("--remat (torch.utils.checkpoint) is not ported "
-                         "yet")
     check_not_ported(cfg)
     return cfg
 
@@ -515,8 +547,8 @@ def print_exp_details(cfg: Config) -> None:
     print(f"    Number of corrupt agents: {cfg.num_corrupt}")
     print(f"    Poison Frac: {cfg.poison_frac}")
     print(f"    Clip: {cfg.clip}")
-    print(f"    Seed: {cfg.seed}  Arch: {cfg.model_arch}  "
-          f"Device: {cfg.device}  "
+    print(f"    Seed: {cfg.seed}  Arch: {cfg.model_arch}  Dtype: {cfg.dtype}"
+          f"  Remat: {cfg.remat} ({cfg.remat_policy})  Device: {cfg.device}  "
           f"Fused server step: {cfg.use_fused}  Mesh: {cfg.mesh}")
     print(f"    Train layout: {cfg.train_layout}  Agent chunk: "
           f"{cfg.agent_chunk}  Chain: {cfg.chain}")
@@ -543,6 +575,7 @@ def print_exp_details(cfg: Config) -> None:
           f"{cfg.traffic} (peak {cfg.traffic_peak_frac}, trough "
           f"{cfg.traffic_trough_frac}, day {cfg.traffic_day_rounds} rounds, "
           f"seed {cfg.traffic_seed})")
+    print(f"    Host runtime: {native.status()}")
     print(f"    Reputation: {cfg.reputation}  Diagnostics: "
           f"{cfg.diagnostics} (top {cfg.top_frac})  Checkpoints: "
           f"{cfg.checkpoint_dir or 'off'}  Resume: {cfg.resume}")

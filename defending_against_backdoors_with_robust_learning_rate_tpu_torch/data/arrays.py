@@ -3,9 +3,10 @@
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 data/arrays.py`. Every agent's shard is stacked into one padded array
 `[K, max_n, H, W, C]` (raw pixels, the JAX layout) with the true sizes kept
-for loss masking and weighted FedAvg. `stack_uneven_shards` is the numpy
-twin of the JAX package's native `pack_uneven` (tests/test_native.py holds
-the two equal); the port keeps the numpy path.
+for loss masking and weighted FedAvg. `stack_agent_shards` and
+`stack_uneven_shards` are the numpy twins of the native `pack_shards` and
+`pack_uneven` (data/native.py; tests/test_torch_native.py holds them
+equal), which the registry calls.
 """
 
 from __future__ import annotations

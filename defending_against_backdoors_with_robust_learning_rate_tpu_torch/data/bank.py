@@ -48,8 +48,8 @@ import numpy as np
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.arrays import (
     padded_max_n)
-from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.partition import (
-    distribute_data)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+    native)
 
 BANK_VERSION = 1
 META_NAME = "meta.json"
@@ -185,7 +185,8 @@ def _iter_client_lists(labels: np.ndarray, *, population: int,
     hi = population if hi is None else hi
     grid_lo = (lo // BUILD_BLOCK) * BUILD_BLOCK
     if partitioner == "label_shards":
-        groups = distribute_data(labels, population, n_classes=n_classes)
+        groups = native.distribute_data(labels, population,
+                                        n_classes=n_classes)
         for start in range(grid_lo, hi, BUILD_BLOCK):
             stop = min(start + BUILD_BLOCK, population)
             a0, a1 = max(start, lo), min(stop, hi)

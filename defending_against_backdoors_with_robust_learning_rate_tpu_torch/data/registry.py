@@ -16,9 +16,10 @@ normalization happens on the device in the train and eval steps
 python pickle batches, Fed-EMNIST's per-user `.pt` files
 (reference src/utils.py:95-124).
 
-The JAX package partitions and packs through its optional native helper
-when that is built, and through numpy otherwise, with identical outputs;
-the port takes the numpy path.
+The partition and the packs go through the native host runtime
+(data/native.py, native/fl_host.cc), where JAX's do (its registry.py:
+439-458), and through the numpy twins under FL_NATIVE_HOST=0 or when the
+library cannot be built, with identical outputs.
 """
 
 from __future__ import annotations
@@ -32,10 +33,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
+    native)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.arrays import (
-    AgentShards, stack_agent_shards, stack_uneven_shards)
-from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.partition import (
-    distribute_data)
+    AgentShards)
 
 # reference normalization constants (src/utils.py:101, 113-116)
 NORM_STATS = {
@@ -433,13 +434,13 @@ def get_federated_data(cfg) -> FederatedData:
     # pad shards to a multiple of the batch size so the client's batch
     # slicing is exact (fl/client.py)
     if isinstance(train, list):     # fedemnist-style per-user shards
-        shards = stack_uneven_shards([s[0] for s in train],
-                                     [s[1] for s in train],
-                                     pad_multiple=cfg.bs)
+        shards = native.pack_uneven([s[0] for s in train],
+                                    [s[1] for s in train],
+                                    pad_multiple=cfg.bs)
     else:
-        groups = distribute_data(train.labels, cfg.num_agents,
-                                 n_classes=cfg.n_classes)
-        shards = stack_agent_shards(train.images, train.labels, groups,
+        groups = native.distribute_data(train.labels, cfg.num_agents,
+                                        n_classes=cfg.n_classes)
+        shards = native.pack_shards(train.images, train.labels, groups,
                                     cfg.num_agents, pad_multiple=cfg.bs)
     imgs, lbls, pmask = poison_agent_shards(shards.images, shards.labels,
                                             shards.sizes, cfg)

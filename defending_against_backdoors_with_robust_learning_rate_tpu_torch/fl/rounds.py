@@ -243,7 +243,12 @@ def _fused_applicable(cfg) -> bool:
     as JAX's `not cfg.churn_enabled` and `not compile_cache.is_cohort_mode`
     clauses say (fl/rounds.py:60-75). JAX has no traffic clause: under
     `--use_pallas --traffic diurnal` on its dense round its kernel skips
-    the presence mask; the port turns the kernel off there too."""
+    the presence mask; the port turns the kernel off there too.
+
+    `--dtype bf16` and `--remat` leave the kernel on, as JAX's
+    `_pallas_applicable` has no clause for either: the params, grads and
+    updates stay f32 (models/layers.py), so K1 reads what it always
+    reads."""
     return (cfg.use_fused and cfg.aggr in ("avg", "sign") and cfg.noise == 0
             and not cfg.diagnostics and not cfg.faults_enabled
             and not cfg.churn_enabled and not cfg.traffic_enabled
@@ -815,8 +820,10 @@ def make_cohort_step(cfg, model, normalize, n_total: int, device):
       active` (`adversary_inputs`, `draw_faults`): the Defense/* cosine
       split and the Faults/* rates follow cohort membership, not slot
       position;
-    - a quarantined member leaves through the mask: `active &
-      quarantine_mask(ids)`;
+    - a quarantined member leaves `active` before the corrupt flags are
+      made from it (the round fn, JAX fl/rounds.py:794-799): the fault
+      draw does not spare it and the attack does not hit it; the device
+      round ANDs `quarantine_mask(ids)` into the mask again;
     - `active` always joins the participation mask (the padding is left
       out of aggregation like a dropped client), so the fused kernel is
       off (`_fused_applicable`), and under churn the away count is the
@@ -872,6 +879,11 @@ def make_cohort_round_fn(cfg, model, normalize, n_total: int, device,
             raise ValueError(f"the cohort round takes m={m} ids and an "
                              f"[m] mask, got {len(ids)} and "
                              f"{active.shape}")
+        if health_sentinel.has_quarantine(cfg):
+            # a quarantined member leaves `active` before the corrupt
+            # flags are made from it (JAX fl/rounds.py:794-799): the fault
+            # draw does not spare it and the attack does not hit it
+            active &= ~np.isin(ids, health_sentinel.quarantine_ids(cfg))
         _, slot_perms, keep = cohort_step.trainer.draw(
             rng, rnd, ids, 0, m, perms, dropout, slot_sizes=host_sizes)
         noise = draw_noise(params, cfg, rng.noise)

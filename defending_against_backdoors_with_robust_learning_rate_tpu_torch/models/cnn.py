@@ -21,6 +21,11 @@ inputs because `torch.func.vmap` cannot draw from a `torch.Generator` and a
 captured CUDA graph should not draw at all. The flatten is CHW-major
 here and HWC-major in Flax; that is the one layout difference the weight
 carrier has to undo.
+
+`dtype` is JAX's compute dtype (`--dtype`, models/layers.py): the input is
+cast to it, every layer computes in it, and the logits come out f32, as
+JAX's `x.astype(jnp.float32)`. The CNNs have no rematerialization, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.models.layers import (
+    DTYPES, conv, dense)
 
 DROPOUT_RATE = 0.5
 
@@ -60,8 +68,19 @@ def _flat_features(h: int, w: int, convs: int, pool_each: bool,
     return h * w * width
 
 
+def _layer(x, mod, dt):
+    """A Conv_i or Dense_i at compute dtype dt; at f32 the module itself
+    runs (its forward hooks fire, as before the dtype existed)."""
+    if dt == torch.float32:
+        return mod(x)
+    if isinstance(mod, nn.Conv2d):
+        return conv(x, mod.weight, mod.bias, dt)
+    return dense(x, mod.weight, mod.bias, dt)
+
+
 class CNN_MNIST(nn.Module):
-    def __init__(self, n_classes: int = 10, image_shape=(28, 28, 1)):
+    def __init__(self, n_classes: int = 10, image_shape=(28, 28, 1),
+                 dtype: str = "f32"):
         super().__init__()
         h, w, c = image_shape
         self.Conv_0 = nn.Conv2d(c, 32, 3)
@@ -69,18 +88,22 @@ class CNN_MNIST(nn.Module):
         self.Dense_0 = nn.Linear(_flat_features(h, w, 2, False, 64), 128)
         self.Dense_1 = nn.Linear(128, n_classes)
         self.dropout_sites = (self.Dense_0.in_features, 128)
+        self.compute_dtype = DTYPES[dtype]
 
     def forward(self, x, keep: Optional[Sequence[torch.Tensor]] = None):
-        x = F.relu(self.Conv_0(x))
-        x = F.relu(self.Conv_1(x))
+        dt = self.compute_dtype
+        x = x.to(dt)
+        x = F.relu(_layer(x, self.Conv_0, dt))
+        x = F.relu(_layer(x, self.Conv_1, dt))
         x = F.max_pool2d(x, 2)
         x = dropout(x.flatten(1), _site(keep, 0))
-        x = dropout(F.relu(self.Dense_0(x)), _site(keep, 1))
-        return self.Dense_1(x)
+        x = dropout(F.relu(_layer(x, self.Dense_0, dt)), _site(keep, 1))
+        return _layer(x, self.Dense_1, dt).to(torch.float32)
 
 
 class CNN_CIFAR(nn.Module):
-    def __init__(self, n_classes: int = 10, image_shape=(32, 32, 3)):
+    def __init__(self, n_classes: int = 10, image_shape=(32, 32, 3),
+                 dtype: str = "f32"):
         super().__init__()
         h, w, c = image_shape
         self.Conv_0 = nn.Conv2d(c, 64, 3)
@@ -90,11 +113,14 @@ class CNN_CIFAR(nn.Module):
         self.Dense_1 = nn.Linear(128, 256)
         self.Dense_2 = nn.Linear(256, n_classes)
         self.dropout_sites = (self.Dense_0.in_features, 128, 256)
+        self.compute_dtype = DTYPES[dtype]
 
     def forward(self, x, keep: Optional[Sequence[torch.Tensor]] = None):
-        for conv in (self.Conv_0, self.Conv_1, self.Conv_2):
-            x = F.max_pool2d(F.relu(conv(x)), 2)
+        dt = self.compute_dtype
+        x = x.to(dt)
+        for c in (self.Conv_0, self.Conv_1, self.Conv_2):
+            x = F.max_pool2d(F.relu(_layer(x, c, dt)), 2)
         x = dropout(x.flatten(1), _site(keep, 0))
-        x = dropout(F.relu(self.Dense_0(x)), _site(keep, 1))
-        x = dropout(F.relu(self.Dense_1(x)), _site(keep, 2))
-        return self.Dense_2(x)
+        x = dropout(F.relu(_layer(x, self.Dense_0, dt)), _site(keep, 1))
+        x = dropout(F.relu(_layer(x, self.Dense_1, dt)), _site(keep, 2))
+        return _layer(x, self.Dense_2, dt).to(torch.float32)

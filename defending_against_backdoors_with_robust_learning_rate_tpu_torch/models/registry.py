@@ -1,8 +1,9 @@
 """Model registry.
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
-models/registry.py` (`get_model`, `init_params`, `param_count`,
-`flops_per_example`); reference src/models.py:4-8.
+models/registry.py` (`get_model` with its `dtype`, `remat` and
+`remat_policy`, `init_params`, `param_count`, `flops_per_example`);
+reference src/models.py:4-8.
 
 The module is built on the meta device: it holds the architecture only and
 draws nothing from torch's global RNG. Parameters live in a separate dict
@@ -29,16 +30,21 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def get_model(data: str, image_shape, n_classes: int = 10,
-              arch: str = "cnn"):
+              arch: str = "cnn", dtype: str = "f32", remat: bool = False,
+              remat_policy: str = "block"):
     """fmnist/fedemnist/synthetic -> CNN_MNIST; cifar10 -> CNN_CIFAR
-    (src/models.py:4-8); arch 'resnet9' -> ResNet-9 on any dataset."""
+    (src/models.py:4-8); arch 'resnet9' -> ResNet-9 on any dataset.
+    `dtype` is the compute dtype (f32 | bf16; params stay f32); `remat`
+    turns on ResNet-9's rematerialization under `remat_policy` (block |
+    conv), and the CNNs ignore it, as JAX's `get_model` does."""
     with torch.device("meta"):
         if arch == "resnet9":
-            return ResNet9(n_classes, image_shape)
+            return ResNet9(n_classes, image_shape, dtype, remat,
+                           remat_policy)
         if data in ("fmnist", "fedemnist", "synthetic"):
-            return CNN_MNIST(n_classes, image_shape)
+            return CNN_MNIST(n_classes, image_shape, dtype)
         if data == "cifar10":
-            return CNN_CIFAR(n_classes, image_shape)
+            return CNN_CIFAR(n_classes, image_shape, dtype)
     raise ValueError(f"no model for data={data!r} arch={arch!r}")
 
 

@@ -4,14 +4,22 @@ Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 train.py` (`run`, `main`, the `RoundEngine` loop, its `_emit_eval_body`
 rows, `_emit_diagnostics` and `save_checkpoint`, `dispatch_schedule`);
 reference src/federated.py:21-95. The loop is the JAX one's without its
-async metrics or service hooks: it walks `dispatch_schedule`'s units,
-one round or a chained block of `--chain` rounds (fl/rounds.make_chained:
-on a card, that many graph replays with no host sync between them), and
-at each `snap` boundary the clean and poisoned val sets are evaluated and
-the reference's scalars written to metrics.jsonl, the boundary's one host
-sync. The boundary is
-judged as JAX's `_emit_eval_body` judges it (train.py:1332-1370): the
-health monitor's `assess` over the health lanes and the params' finite
+service hooks: it walks `dispatch_schedule`'s units, one round or a
+chained block of `--chain` rounds (fl/rounds.make_chained: on a card,
+that many graph replays with no host sync between them), and at each
+`snap` boundary the clean and poisoned val sets are evaluated and the
+reference's scalars written to metrics.jsonl. The boundary's values come
+back in one device-to-host copy (utils/metrics.fetch); with the async
+metrics drain (JAX train.py:998-1010, on by default, `--sync_metrics`
+turns it off; off under --diagnostics and on the sharded round) that copy
+and the rows run on a background thread (utils/metrics.MetricsDrain)
+while the next rounds run, and the drain is flushed before each
+checkpoint save and at the end. One code path writes the rows in both
+modes, so metrics.jsonl is the same apart from its wall-clock rows; a
+health abort raises at the next submit, flush or close, as JAX's does.
+The boundary is judged as JAX's `_emit_eval_body` judges it
+(train.py:1332-1370): the health monitor's `assess` over the health
+lanes and the params' finite
 bit, then `emit_rows` (the Health/* rows), then `enforce` (the policy:
 record warns, abort raises), the reference's rows and a faults run's
 Faults/* rows, then the Defense/* rows of `--telemetry` (JAX
@@ -141,7 +149,7 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils impor
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.guards import (
     all_finite_device)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
-    FAULT_TAGS, MetricsWriter, fault_rows, run_name)
+    FAULT_TAGS, MetricsDrain, MetricsWriter, fault_rows, fetch, run_name)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -331,6 +339,12 @@ def _emit_diagnostics(cfg: Config, writer, rnd: int, info, params, prev,
     return cum_net_mov
 
 
+def _copied(v):
+    """A round output kept past the next replay: a tensor is cloned on its
+    device (a replay's outputs are the graph's buffers)."""
+    return v.clone() if isinstance(v, torch.Tensor) else v
+
+
 def _fold_pending(tracker, pending) -> None:
     """Fold the rounds' rep rows since the last boundary, in order: each
     (round ids, sampled ids, rep_agree, rep_norm), one round's [m] rows
@@ -400,7 +414,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             f"synthetic stand-in, {cfg.synth_train_size} train / "
             f"{cfg.synth_val_size} val")
     model = get_model(cfg.data, cfg.image_shape, cfg.n_classes,
-                      cfg.model_arch)
+                      cfg.model_arch, cfg.dtype, cfg.remat, cfg.remat_policy)
     params = init_params(model, cfg.seed, device)
     say(f"[model] {type(model).__name__}: {param_count(params):,} params "
         f"on {device}")
@@ -548,12 +562,83 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
 
     def diag_unit(unit):
         return diag_fn is not None and unit[0] % cfg.snap == 0
-    summary: Dict = {}
+    # the boundary's state, which `emit` advances: on the drain's thread in
+    # async mode, so the main thread reads it only after a flush
+    state = {"summary": {}, "cum_poison_acc": cum_poison_acc,
+             "health_ema": health_ema}
+    clock = {"t_loop": None, "t_steady": None, "r_steady": None}
+
+    def emit(fetched, rnd, rounds_now):
+        """One eval boundary's host side: its rows, the health policy, the
+        run summary, in JAX's `_emit_eval_body` order. `fetched` is the
+        boundary's (values, reputation rows) on the host. Sync mode calls
+        it in line, async mode on the drain's thread: one code path, so
+        metrics.jsonl is the same in both."""
+        host, rep_rows = fetched
+        vals = {k: (v.tolist() if k.startswith(obs_telemetry.PREFIX)
+                    else float(v)) for k, v in host.items()}
+        now = time.perf_counter()
+        elapsed = now - clock["t_loop"]
+        # the health policy first, as JAX's _emit_eval_body: its rows, then
+        # record warns or abort raises; its EMA state is committed last
+        report = health_monitor.assess(cfg, state["health_ema"], vals)
+        health_monitor.emit_rows(writer, report, rnd)
+        health_monitor.enforce(cfg, report, where=f"round {rnd}")
+        cum = state["cum_poison_acc"] + vals["poison_acc"]
+        # scalar names preserved from reference src/federated.py:81-91
+        writer.scalar("Validation/Loss", vals["val_loss"], rnd)
+        writer.scalar("Validation/Accuracy", vals["val_acc"], rnd)
+        writer.scalar("Poison/Base_Class_Accuracy", vals["base_acc"], rnd)
+        writer.scalar("Poison/Poison_Accuracy", vals["poison_acc"], rnd)
+        writer.scalar("Poison/Poison_Loss", vals["poison_loss"], rnd)
+        writer.scalar("Poison/Cumulative_Poison_Accuracy_Mean", cum / rnd,
+                      rnd)
+        writer.scalar("Train/Loss", vals["train_loss"], rnd)
+        for tag, value in fault_rows(vals).items():
+            writer.scalar(tag, value, rnd)
+        obs_telemetry.emit_scalars(writer, vals, rnd)
+        if tracker is not None:
+            _fold_pending(tracker, rep_rows)
+            obs_reputation.emit_rows(writer, tracker, rnd, rep_pred)
+        # the rounds of this life (a resumed run counts from its restore),
+        # as JAX's rounds_done
+        writer.scalar("Throughput/Rounds_Per_Sec", rounds_now / elapsed, rnd)
+        steady = ((rounds_now - clock["r_steady"])
+                  / (now - clock["t_steady"])
+                  if rounds_now > clock["r_steady"] else None)
+        if steady is not None:
+            writer.scalar("Throughput/Steady_Rounds_Per_Sec", steady, rnd)
+        writer.flush()
+        print(f"| Rnd {rnd}: Val_Loss/Val_Acc: {vals['val_loss']:.3f} / "
+              f"{vals['val_acc']:.3f} |")
+        print(f"| Rnd {rnd}: Poison Loss/Poison Acc: "
+              f"{vals['poison_loss']:.3f} / {vals['poison_acc']:.3f} |")
+        summary = {"round": rnd, "rounds_per_sec": rounds_now / elapsed,
+                   "steady_rounds_per_sec": steady, **vals}
+        defense = obs_telemetry.host_summary(vals)
+        if defense:
+            summary["defense"] = defense
+        if tracker is not None:
+            summary["suspicion"] = tracker.summary(rep_pred)
+        state.update(summary=summary, cum_poison_acc=cum,
+                     health_ema=report["new_state"])
+
+    # the async drain (JAX train.py:998-1010): not under --diagnostics,
+    # whose rows need host values in line, and on one process only
+    drain = (MetricsDrain() if lead and group is None and cfg.async_metrics
+             and not cfg.diagnostics else None)
+    if drain is not None:
+        say("[metrics] async drain: host syncs ride a background thread "
+            "(--sync_metrics restores the inline path)")
     rounds_done = 0
     rep_pending = []
     with (MetricsWriter(cfg.log_dir, run_name(cfg), cfg.tensorboard)
           if lead else contextlib.nullcontext()) as writer, \
             contextlib.ExitStack() as stack:
+        if drain is not None:
+            # on an error the loop's own exception wins; a clean end
+            # closes it below and re-raises what the drain hit
+            stack.callback(drain.close, raise_errors=False)
         if gathered:
             # gathered in line up to the first snap round of --diagnostics:
             # its round fn's graph is captured there
@@ -562,8 +647,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             get_unit = _host_units(cfg, source, device, units, stack, say,
                                    inline, cohort_mode)
         _sync(device)
-        t_loop = time.perf_counter()
-        t_steady = r_steady = None
+        clock["t_loop"] = time.perf_counter()
         for unit in units:
             want_diag = diag_unit(unit)
             if len(unit) > 1:
@@ -594,92 +678,57 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                                         info["rep_norm"].clone()))
             rnd = unit[-1]
             rounds_done += len(unit)
-            if t_steady is None:
+            if clock["t_steady"] is None:
                 # the first dispatch pays the one-off costs (kernel build,
                 # cuDNN plans, allocator growth, the round's capture);
                 # steady time starts after it
                 _sync(device)
-                t_steady, r_steady = time.perf_counter(), rounds_done
+                clock["t_steady"] = time.perf_counter()
+                clock["r_steady"] = rounds_done
             if want_diag and lead:
                 cum_net_mov = _emit_diagnostics(cfg, writer, rnd, info,
                                                 params, prev, fisher_fn,
                                                 pval, cum_net_mov)
             if rnd % cfg.snap or not lead:
                 continue
-            finite = all_finite_device(params)
             val_loss, val_acc, per_class = eval_fn(params, *val)
             poison_loss, poison_acc, _ = eval_fn(params, *pval)
-            # the one host sync of a boundary: every scalar comes back here
-            vals = {k: float(v) for k, v in (
-                ("finite", finite),
-                ("val_loss", val_loss), ("val_acc", val_acc),
-                ("base_acc", per_class[cfg.base_class]),
-                ("poison_loss", poison_loss), ("poison_acc", poison_acc),
-                ("train_loss", info["train_loss"]),
-                *((k, info[k])
-                  for k in health_sentinel.boundary_keys(cfg)),
-                *((k, info[k]) for k in FAULT_TAGS if k in info),
-                *((k, info[k]) for k in ("churn_away",) if k in info))}
-            # the defense telemetry rides the same sync; the margin
-            # histogram comes back as a list
-            vals.update({k: v.tolist() for k, v in info.items()
-                         if k.startswith(obs_telemetry.PREFIX)})
-            now = time.perf_counter()
-            elapsed = now - t_loop
-            # the health policy first, as JAX's _emit_eval_body: its rows,
-            # then record warns or abort raises; its EMA state is committed
-            # last
-            report = health_monitor.assess(cfg, health_ema, vals)
-            health_monitor.emit_rows(writer, report, rnd)
-            health_monitor.enforce(cfg, report, where=f"round {rnd}")
-            cum_poison_acc += vals["poison_acc"]
-            # scalar names preserved from reference src/federated.py:81-91
-            writer.scalar("Validation/Loss", vals["val_loss"], rnd)
-            writer.scalar("Validation/Accuracy", vals["val_acc"], rnd)
-            writer.scalar("Poison/Base_Class_Accuracy", vals["base_acc"], rnd)
-            writer.scalar("Poison/Poison_Accuracy", vals["poison_acc"], rnd)
-            writer.scalar("Poison/Poison_Loss", vals["poison_loss"], rnd)
-            writer.scalar("Poison/Cumulative_Poison_Accuracy_Mean",
-                          cum_poison_acc / rnd, rnd)
-            writer.scalar("Train/Loss", vals["train_loss"], rnd)
-            for tag, value in fault_rows(vals).items():
-                writer.scalar(tag, value, rnd)
-            obs_telemetry.emit_scalars(writer, vals, rnd)
-            if tracker is not None:
-                _fold_pending(tracker, rep_pending)
-                rep_pending = []
-                obs_reputation.emit_rows(writer, tracker, rnd, rep_pred)
-            # the rounds of this life (a resumed run counts from its
-            # restore), as JAX's rounds_done
-            writer.scalar("Throughput/Rounds_Per_Sec", rounds_done / elapsed,
-                          rnd)
-            steady = ((rounds_done - r_steady) / (now - t_steady)
-                      if rounds_done > r_steady else None)
-            if steady is not None:
-                writer.scalar("Throughput/Steady_Rounds_Per_Sec", steady, rnd)
-            writer.flush()
-            print(f"| Rnd {rnd}: Val_Loss/Val_Acc: {vals['val_loss']:.3f} / "
-                  f"{vals['val_acc']:.3f} |")
-            print(f"| Rnd {rnd}: Poison Loss/Poison Acc: "
-                  f"{vals['poison_loss']:.3f} / {vals['poison_acc']:.3f} |")
-            summary = {"round": rnd, "rounds_per_sec": rounds_done / elapsed,
-                       "steady_rounds_per_sec": steady, **vals}
-            defense = obs_telemetry.host_summary(vals)
-            if defense:
-                summary["defense"] = defense
-            if tracker is not None:
-                summary["suspicion"] = tracker.summary(rep_pred)
-            health_ema = report["new_state"]
+            # the boundary's device values, copied out of the replay's
+            # buffers (the next replay overwrites them); every scalar comes
+            # back to the host in one copy (`fetch`), in line or on the
+            # drain's thread. The defense telemetry rides the same copy.
+            dev = {"finite": all_finite_device(params),
+                   "val_loss": val_loss, "val_acc": val_acc,
+                   "base_acc": per_class[cfg.base_class],
+                   "poison_loss": poison_loss, "poison_acc": poison_acc,
+                   **{k: _copied(info[k]) for k in (
+                       "train_loss",
+                       *health_sentinel.boundary_keys(cfg),
+                       *(k for k in FAULT_TAGS if k in info),
+                       *(k for k in ("churn_away",) if k in info),
+                       *(k for k in info
+                         if k.startswith(obs_telemetry.PREFIX)))}}
+            if drain is not None:
+                drain.submit(emit, (dev, rep_pending), rnd, rounds_done)
+            else:
+                emit(fetch((dev, rep_pending)), rnd, rounds_done)
+            rep_pending = []
             if cfg.checkpoint_dir:
-                # after the boundary's rows and state; the one-shot
-                # trainer keeps every checkpoint (JAX's keep of 0)
+                # after the boundary's rows and state (the drain flushed
+                # first, as JAX's save_checkpoint); the one-shot trainer
+                # keeps every checkpoint (JAX's keep of 0)
+                if drain is not None:
+                    drain.flush()
                 ckpt.save(cfg.checkpoint_dir, rnd, params, rng.state_dict(),
-                          cum_poison_acc, cum_net_mov)
-                extra = {"health": health_ema}
+                          state["cum_poison_acc"], cum_net_mov)
+                extra = {"health": state["health_ema"]}
                 if tracker is not None:
                     extra["reputation"] = tracker.state_dict()
                 ckpt.journal_record(cfg.checkpoint_dir, rnd, writer.offset(),
                                     **extra)
+        if drain is not None:
+            drain.close()
+    summary = state["summary"]
     say("Training has finished!")
     if summary:
         steady = summary["steady_rounds_per_sec"]

@@ -1,7 +1,7 @@
-"""Run naming and the JSONL metrics sink.
+"""Run naming, the JSONL metrics sink and the async metrics drain.
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
-utils/metrics.py` (`run_name`, `MetricsWriter`). The scalar tags are the
+utils/metrics.py` (`run_name`, `MetricsWriter`, `MetricsDrain`). The scalar tags are the
 reference's TensorBoard names (src/federated.py:81-91); each row is
 {"tag", "value", "step"}, and every run opens with a `_run/start` record,
 so reruns of one config can append to one file and still be split (a
@@ -23,10 +23,14 @@ writes after them under churn (train.py:1371-1373).
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import threading
 import time
 from typing import Optional
+
+import torch
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
     schedule as attack_schedule)
@@ -90,6 +94,175 @@ def run_name(cfg) -> str:
             f"-thrs_robustLR:{cfg.robustLR_threshold}"
             f"-pttrn:{cfg.pattern_type}-seed:{cfg.seed}"
             f"{churn}{traffic}{cohort}{atk}")
+
+
+def fetch(tree):
+    """`tree` (nested dicts, lists and tuples of tensors and host values)
+    with every tensor brought to the host in one device-to-host copy per
+    device: the tensors are flattened into one float64 buffer on their
+    device (exact for f32, ints under 2**53 and bools), copied once, and
+    split back into host tensors of their own dtype and shape. Host
+    values pass through."""
+    leaves = []
+
+    def collect(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                collect(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                collect(v)
+        elif isinstance(node, torch.Tensor):
+            leaves.append(node)
+    collect(tree)
+    host = {}
+    by_device = collections.defaultdict(list)
+    for t in leaves:
+        by_device[t.device].append(t)
+    for device, ts in by_device.items():
+        if device.type == "cpu":
+            host.update({id(t): t.detach() for t in ts})
+            continue
+        flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
+                          for t in ts]).cpu()
+        for t, piece in zip(ts, flat.split([t.numel() for t in ts]),
+                            strict=True):
+            host[id(t)] = piece.to(t.dtype).reshape(t.shape)
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            return {k: rebuild(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v) for v in node)
+        if isinstance(node, torch.Tensor):
+            return host[id(node)]
+        return node
+    return rebuild(tree)
+
+
+class MetricsDrain:
+    """The async host-sync pipeline (JAX `MetricsDrain`): the round loop
+    queues callbacks with their *device* values and moves on; a background
+    thread fetches the values (one batched device-to-host copy of
+    everything queued at that moment, `fetch`) and runs the callbacks in
+    strict FIFO order, so the metrics stream is the synchronous path's
+    (tests/test_torch_drain.py holds it).
+
+    Error policy, JAX's: a callback exception stops the drain and is
+    re-raised on the submitting thread at the next submit(), flush() or
+    close(), whichever comes first; after it is delivered once, later
+    submissions are dropped. ``flush(timeout=...)`` raises TimeoutError
+    when the drain makes no progress within the budget. ``close()``
+    interrupted by KeyboardInterrupt still flushes: the worker drains
+    everything already queued before it stops, then the interrupt
+    propagates.
+
+    The values a callback gets are host tensors: the caller hands over
+    device tensors that nothing overwrites before they are fetched (the
+    driver clones a replay's outputs on the device first), and the copy
+    runs on the worker's current stream, after the work queued before
+    the submit."""
+
+    def __init__(self):
+        self._items = collections.deque()
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._pending = 0
+        self._stop = False
+        self._error = None
+        self._dead = False      # the worker exited on an error
+        self._thread = None
+
+    def _raise_pending_locked(self) -> None:
+        """Deliver the worker's error exactly once (the caller holds the
+        lock)."""
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def submit(self, fn, device_vals, *host_args) -> None:
+        """Queue fn(fetched device_vals, *host_args) for the worker,
+        re-raising here a pending worker error."""
+        with self._cond:
+            self._raise_pending_locked()
+            if self._dead:
+                return
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._loop, name="metrics-drain", daemon=True)
+                self._thread.start()
+            self._items.append((fn, device_vals, host_args))
+            self._pending += 1
+            self._cond.notify_all()
+
+    def _loop(self):
+        while True:
+            with self._cond:
+                while not self._items and not self._stop:
+                    self._cond.wait()
+                if self._stop and not self._items:
+                    return
+                batch = list(self._items)
+                self._items.clear()
+            try:
+                # one copy for everything queued right now
+                fetched = fetch([d for _, d, _ in batch])
+                for (fn, _, host_args), vals in zip(batch, fetched,
+                                                    strict=True):
+                    fn(vals, *host_args)
+            except BaseException as e:  # noqa: BLE001 — re-raised later
+                with self._cond:
+                    self._error = e
+                    self._dead = True
+                    self._pending = 0
+                    self._items.clear()
+                    self._cond.notify_all()
+                return
+            with self._cond:
+                self._pending -= len(batch)
+                self._cond.notify_all()
+
+    def flush(self, timeout: Optional[float] = None) -> None:
+        """Block until every queued callback has run; re-raise the first
+        worker error here. With a `timeout` (seconds), raise TimeoutError
+        when callbacks are still pending past it."""
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
+        with self._cond:
+            while self._pending > 0 and self._error is None:
+                if deadline is None:
+                    self._cond.wait()
+                    continue
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(
+                        f"metrics drain stalled: {self._pending} "
+                        f"callback(s) still pending after {timeout:.1f}s")
+                self._cond.wait(remaining)
+            self._raise_pending_locked()
+
+    def _stop_and_join(self, join_timeout: float = 30.0) -> None:
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=join_timeout)
+            self._thread = None
+
+    def close(self, raise_errors: bool = True) -> None:
+        try:
+            self.flush()
+        except KeyboardInterrupt:
+            # ^C mid-flush: the worker drains what is queued before it
+            # stops, then the interrupt propagates, whatever raise_errors
+            self._stop_and_join(join_timeout=5.0)
+            raise
+        except BaseException:
+            self._stop_and_join()
+            if raise_errors:
+                raise
+            return
+        self._stop_and_join()
 
 
 class MetricsWriter:

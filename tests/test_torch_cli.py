@@ -102,6 +102,11 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    # slice 10's modules are among those read and imported
+    ported = {p.relative_to(PORT_DIR).as_posix() for p in files
+              if PORT_DIR in p.parents}
+    assert {"models/layers.py", "models/remat.py", "data/native.py",
+            "utils/metrics.py", "closing_check.py"} <= ported
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)

@@ -236,13 +236,19 @@ def test_host_sampling_prefetch_and_cli(tmp_path, capsys):
 
     # refusals: what this port has not ported yet, and JAX's own error for
     # a --host_sampled value that is not a choice
-    for argv in (["--remat"], ["--agg_mode", "buffered"],
+    for argv in (["--tenants", "2"], ["--agg_mode", "buffered"],
                  ["--rlr_adapt", "on"]):
         with pytest.raises(ValueError, match="not ported yet"):
             train.args_parser(argv)
-    bad = ["--host_sampled", "sometimes"]
-    assert (_parse_error(train.args_parser, bad, capsys)
-            == _parse_error(jax_args_parser, bad, capsys))
+    for bad in (["--host_sampled", "sometimes"],
+                ["--remat", "--remat_policy", "layer"]):
+        assert (_parse_error(train.args_parser, bad, capsys)
+                == _parse_error(jax_args_parser, bad, capsys))
+    # --remat is ported (slice 10): accepted with JAX's choices
+    got = train.args_parser(["--remat", "--remat_policy", "conv", "--dtype",
+                             "bf16", "--sync_metrics"])
+    assert (got.remat, got.remat_policy, got.dtype, got.async_metrics) == (
+        True, "conv", "bf16", False)
     assert train.args_parser(["--host_sampled", "on"]).host_prefetch == 2
 
     # a CPU run of the host-sampled round, 2 rounds, prefetched
