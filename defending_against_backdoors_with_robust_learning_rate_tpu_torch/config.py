@@ -8,14 +8,15 @@ registry and schedule, the watermark patterns, the defense telemetry and
 the TensorBoard sink, slice 8's checkpoint and resume, the reputation
 lanes and tracker, and the reference's diagnostics, slice 9's population
 axis: churn, the cohort and its client bank, diurnal traffic, slice 10's
-compute dtype, ResNet-9 rematerialization and the async metrics drain).
+compute dtype, ResNet-9 rematerialization and the async metrics drain,
+slice 11's buffered-async aggregation).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 config.py` (`Config`, `args_parser`, `print_exp_details`). Every field here
 keeps the JAX name and default; flags the port does not run yet are not
 accepted, so a command line that asks for one fails instead of being
-quietly ignored (`--agg_mode buffered`, `--tenants` and `--chaos` are
-parsed only to be refused with the ROADMAP item that ports them).
+quietly ignored (`--tenants` and `--chaos` are parsed only to be refused
+with the ROADMAP item that ports them).
 
 Port-only fields:
 - ``device`` (default ``cuda``): where the round runs. A run on ``cuda``
@@ -43,6 +44,8 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.traffi
     TRAFFIC_MODES)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
     model as fmodel)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+    buffered)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
     monitor as health_monitor)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
@@ -235,11 +238,27 @@ class Config:
     traffic_peak_frac: float = 0.8  # availability at a client's local peak
     traffic_trough_frac: float = 0.1  # availability at its local trough
     traffic_day_rounds: int = 64    # rounds per simulated day
-    traffic_latency_sigma: float = 0.8  # the buffered path's log-normal
-                                    # staleness sigma (that path is not
-                                    # ported; nothing else reads it)
+    traffic_latency_sigma: float = 0.8  # log-normal sigma of the buffered
+                                    # path's staleness draw under diurnal
+                                    # traffic (data/traffic.py
+                                    # latency_quantile)
+    # --- buffered-async aggregation (JAX fl/buffered.py) ---
+    agg_mode: str = "sync"          # sync | buffered: sync aggregates every
+                                    # round; buffered folds each arriving
+                                    # update into a carried staleness-
+                                    # weighted buffer and commits once
+                                    # --async_buffer_k updates arrived; a
+                                    # straggler's update lands T ticks late
+                                    # (no epoch cut). avg/sign (+- RLR)
+    async_buffer_k: int = 0         # arrivals per commit; 0 = the cohort
+                                    # size m (staleness 0 then reproduces
+                                    # the sync path)
+    async_staleness_exp: float = 0.0  # an arrival of staleness T folds with
+                                    # weight 1/(1+T)^a; 0 = unweighted
+    async_max_staleness: int = 4    # max latency draw T (ticks) of a
+                                    # straggler; bounds the pending state
+                                    # and the staleness bins
     # --- JAX paths not ported, accepted only to be refused by name ---
-    agg_mode: str = "sync"          # sync | buffered (buffered: not ported)
     tenants: int = 0                # tenant packs (not ported)
     chaos: str = ""                 # the service driver's drills (not
                                     # ported)
@@ -327,7 +346,9 @@ def build_parser() -> argparse.ArgumentParser:
                       "telemetry", "tensorboard", "reputation",
                       "diagnostics", "resume", "cohort_sampled",
                       "partitioner", "bank_verify", "traffic", "agg_mode",
-                      "remat", "remat_policy", "async_metrics"):
+                      "remat", "remat_policy", "async_metrics",
+                      "async_buffer_k", "async_staleness_exp",
+                      "async_max_staleness", "traffic_latency_sigma"):
             continue
         p.add_argument(f"--{f.name}", type=type(getattr(d, f.name)),
                        default=getattr(d, f.name))
@@ -448,10 +469,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "path as before; diurnal = seeded per-client "
                         "timezones + raised-cosine daily availability "
                         "into the participation mask")
+    p.add_argument("--traffic_latency_sigma", type=float,
+                   default=d.traffic_latency_sigma,
+                   help="log-normal sigma of the buffered-mode staleness "
+                        "draw (clipped to [1, max_staleness])")
     p.add_argument("--agg_mode", choices=("sync", "buffered"),
                    default=d.agg_mode,
-                   help="sync aggregates every round (buffered-async "
-                        "aggregation is refused: not ported yet)")
+                   help="aggregation mode (fl/buffered.py): sync = every "
+                        "round barriers on the slowest client (the "
+                        "historical path); buffered = FedBuff-shape — "
+                        "arriving updates fold into a persistent "
+                        "staleness-weighted buffer carried across ticks, "
+                        "the server commits when --async_buffer_k have "
+                        "arrived, and a straggling client's update lands "
+                        "T ticks later with staleness T (avg/sign ± RLR "
+                        "only)")
+    p.add_argument("--async_buffer_k", type=int, default=d.async_buffer_k,
+                   help="buffered mode: arrivals per commit (0 = auto: "
+                        "the cohort size m — staleness-0 then reproduces "
+                        "the sync path)")
+    p.add_argument("--async_staleness_exp", type=float,
+                   default=d.async_staleness_exp,
+                   help="buffered mode: staleness-weight exponent a — an "
+                        "arrival with staleness T folds with weight "
+                        "1/(1+T)^a (0 = unweighted)")
+    p.add_argument("--async_max_staleness", type=int,
+                   default=d.async_max_staleness,
+                   help="buffered mode: max latency draw in ticks for a "
+                        "straggling client (bounds the carried pending "
+                        "state and the staleness telemetry bins)")
     p.add_argument("--no_fused", action="store_true",
                    help="server step through ops/aggregate.py instead of "
                         "the fused RLR kernel")
@@ -493,6 +539,7 @@ def args_parser(argv: Optional[list] = None) -> Config:
                          f"{cfg.pattern_type!r}")
     attack_registry.check(cfg)
     reputation.check(cfg)
+    buffered.check(cfg)
     if cfg.rlr_adapt == "on":
         raise ValueError(RLR_ADAPT_NOT_PORTED)
     check_not_ported(cfg)
@@ -502,8 +549,6 @@ def args_parser(argv: Optional[list] = None) -> Config:
 def check_not_ported(cfg: Config) -> None:
     """Refuse, by name and ROADMAP item, the JAX paths the population
     axis's flags reach that the port has not yet."""
-    if cfg.agg_mode != "sync":
-        raise ValueError(BUFFERED_NOT_PORTED)
     if cfg.tenants > 0:
         raise ValueError(TENANTS_NOT_PORTED)
     if cfg.chaos:
@@ -514,13 +559,20 @@ RLR_ADAPT_NOT_PORTED = (
     "--rlr_adapt on (attack/adapt.py: the service driver's online "
     "threshold adaptation) is not ported yet; it needs the service driver "
     "and checkpoints")
-BUFFERED_NOT_PORTED = (
-    "--agg_mode buffered (fl/buffered.py: buffered-async aggregation) is "
-    "not ported yet (ROADMAP queue 1 item 12); the port aggregates every "
-    "round (--agg_mode sync)")
 TENANTS_NOT_PORTED = (
-    "--tenants (fl/tenancy.py: tenant packs of experiments) is not ported "
-    "yet (ROADMAP queue 1 item 12); run one experiment a process")
+    "--tenants (fl/tenancy.py: tenant packs of experiments, run by the "
+    "service queue) is not ported yet (ROADMAP queue 1 item 15); run one "
+    "experiment a process")
+BUFFERED_SHARDED_NOT_PORTED = (
+    "--agg_mode buffered on the sharded round is not ported yet (ROADMAP "
+    "queue 1 item 11: its round has no fault mask to carry the straggler "
+    "flags); run the dense, chained or cohort round on one card")
+BUFFERED_HOST_SAMPLED = (
+    "--agg_mode buffered is not supported in host-sampled mode (this "
+    "dataset is above the device-resident budget and the host step has "
+    "no channel for the arrival draw); run cohort-sampled "
+    "(--cohort_sampled on) so the round program owns the cohort, or "
+    "--agg_mode sync")
 CHAOS_NOT_PORTED = (
     "--chaos (service/chaos.py: the service driver's fault drills, "
     "bank_corrupt among them) is not ported yet (ROADMAP queue 1 item 15)")
@@ -551,7 +603,8 @@ def print_exp_details(cfg: Config) -> None:
           f"  Remat: {cfg.remat} ({cfg.remat_policy})  Device: {cfg.device}  "
           f"Fused server step: {cfg.use_fused}  Mesh: {cfg.mesh}")
     print(f"    Train layout: {cfg.train_layout}  Agent chunk: "
-          f"{cfg.agent_chunk}  Chain: {cfg.chain}")
+          f"{cfg.agent_chunk}  Chain: {cfg.chain}  Aggregation mode: "
+          f"{cfg.agg_mode}")
     if cfg.faults_enabled:
         print(f"    Faults: dropout {cfg.dropout_rate}  straggler "
               f"{cfg.straggler_rate} ({cfg.straggler_epochs} ep)  corrupt "

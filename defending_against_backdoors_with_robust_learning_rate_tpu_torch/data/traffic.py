@@ -3,7 +3,8 @@ curve, every draw a pure function of (client id, round).
 
 Counterpart: `defending_against_backdoors_with_robust_learning_rate_tpu/
 data/traffic.py` (`TRAFFIC_KEY_TAG`, `TRAFFIC_MODES`, `mean_available`,
-`availability_curve`, `present_slots`, `census`). Each client gets a
+`availability_curve`, `present_slots`, `latency_quantile`, `census`).
+Each client gets a
 seeded timezone offset in [0, traffic_day_rounds); its local time of day
 at round r is (r + offset) mod traffic_day_rounds, its availability the
 raised cosine between `traffic_trough_frac` and `traffic_peak_frac`
@@ -17,14 +18,18 @@ and uniforms as inputs, and the tests feed it JAX's own. The curve is
 computed in float32 in JAX's order of operations; the cosine is numpy's,
 which may differ from XLA's by an ulp (tests/test_torch_presence.py).
 
-Not ported: `latency_quantile`, the buffered path's heavy-tailed
-staleness draw, with the buffered path (ROADMAP queue 1 item 12);
-`--traffic_latency_sigma` is accepted and read by nothing else.
+`latency_quantile` maps the buffered path's straggler uniforms
+(fl/buffered.latency) to heavy-tailed staleness under `--traffic diurnal`,
+in float32 in JAX's order of operations; its erfinv and exp are torch's,
+which may differ from XLA's by an ulp, and so move the ceiling only where
+exp(sigma * z) lies within an ulp of an integer
+(tests/test_torch_buffered_draw.py holds it to JAX's).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
     streams)
@@ -87,6 +92,19 @@ def present_slots(cfg, client_ids, rnd: int) -> np.ndarray:
     ids = np.asarray(client_ids, dtype=np.int64)
     return present_from(cfg, rnd, draw_offsets(cfg, ids),
                         draw_uniforms(cfg, ids, rnd))
+
+
+def latency_quantile(cfg, u, max_staleness: int) -> torch.Tensor:
+    """[n] int32 staleness in [1, max_staleness] from uniforms `u` in
+    [0, 1): the log-normal quantile exp(sigma * PPF(u)), sigma =
+    --traffic_latency_sigma, ceiled and clipped; PPF(u) = sqrt(2) *
+    erfinv(2u - 1), in float32 (JAX `latency_quantile`)."""
+    sigma = torch.tensor(cfg.traffic_latency_sigma, dtype=torch.float32)
+    u = (u.to(torch.float32) if isinstance(u, torch.Tensor)
+         else torch.tensor(np.asarray(u, dtype=np.float32)))
+    z = torch.sqrt(torch.tensor(2.0)) * torch.erfinv(2.0 * u - 1.0)
+    t = torch.ceil(torch.exp(sigma * z))
+    return torch.clamp(t, 1, max_staleness).to(torch.int32)
 
 
 def census(cfg, rnd: int) -> int:

@@ -116,6 +116,22 @@ the lr) and adds "agent_norms" ([m]) and, with RLR on, "lr_flat" (the
 flat lr) to its info. The driver (train.py) builds that round fn beside
 the plain one and runs it on the snap rounds only (JAX's plain/diag
 program pair, train.py:340-342); on a card each is its own captured graph.
+
+Buffered-async aggregation (`--agg_mode buffered`, fl/buffered.py): the
+dense round, the cohort round and their chained forms become ticks. The
+round's "params" are then the carry of fl/buffered.join_carry, the model
+params and the buffer state in one dict, so a captured round replays
+from the buffer the previous replay left and `make_chained` threads it
+like the params. The stragglers train full epochs; each tick's [m]
+latency T is drawn on the host from the straggler flags of the fault
+draw (`tick_inputs`, fl/buffered.latency) and enters the device work as
+an input; `buffered_path` runs JAX `_round_core`'s buffered tail in its
+order (fl/rounds.py:323-362): the participation mask as in
+`server_path`, `tick_contributions` over the masked stack, `fold_commit`,
+then the telemetry over the buffer's vote, the reputation lanes against
+the buffer's accumulated vote and the health lanes over the committed
+params. The fused kernel is off (`_fused_applicable`). The host-sampled
+round refuses buffered, as JAX's does.
 """
 
 from __future__ import annotations
@@ -127,12 +143,14 @@ import torch
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
     registry as attack_registry)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
+    BUFFERED_HOST_SAMPLED)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
     traffic)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
     masking, model as fmodel)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
-    diagnostics)
+    buffered, diagnostics)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.client import (
     draw_slot, make_local_train_batched)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
@@ -152,9 +170,11 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils impor
 # beside train_loss and the hlth_* lanes (JAX fl/rounds.py:39)
 FAULT_INFO_KEYS = fmodel.INFO_KEYS
 # everything a chained block stacks besides train_loss and the hlth_*,
-# tel_* and rep_* lanes: the fault counters and the churn away count (JAX
-# CHAINED_INFO_KEYS without the buffered path's)
-CHAINED_INFO_KEYS = FAULT_INFO_KEYS + ("churn_away",)
+# tel_* and rep_* lanes: the fault counters, the churn away count and the
+# buffered path's fill, commit and staleness values (JAX
+# CHAINED_INFO_KEYS)
+CHAINED_INFO_KEYS = (FAULT_INFO_KEYS + ("churn_away",)
+                     + buffered.ASYNC_INFO_KEYS)
 
 
 class RoundRNG:
@@ -162,7 +182,8 @@ class RoundRNG:
     draws the sampled agent ids, `slot(rnd, i)` gives sampled slot i's
     generator of round rnd (its shuffles, then its dropout masks), `noise`
     draws the server noise, `faults(rnd)` gives round rnd's fault
-    generator (CPU). `next_round` numbers the rounds from 1.
+    generator (CPU), `latency(rnd)` its buffered-arrival generator (CPU).
+    `next_round` numbers the rounds from 1.
 
     `host` and `noise` are stateful and `round` is a counter; `slot` and
     `faults` are functions of (seed, round, slot). `state_dict` /
@@ -207,6 +228,10 @@ class RoundRNG:
         return torch.Generator().manual_seed(
             _seed_of(self.seed, rnd, fmodel.FAULTS_KEY_TAG))
 
+    def latency(self, rnd: int) -> torch.Generator:
+        return torch.Generator().manual_seed(
+            _seed_of(self.seed, rnd, buffered.ASYNC_KEY_TAG))
+
 
 def _seed_of(*words: int) -> int:
     """A 63-bit generator seed from a tuple of words."""
@@ -248,8 +273,13 @@ def _fused_applicable(cfg) -> bool:
     `--dtype bf16` and `--remat` leave the kernel on, as JAX's
     `_pallas_applicable` has no clause for either: the params, grads and
     updates stay f32 (models/layers.py), so K1 reads what it always
-    reads."""
+    reads.
+
+    `--agg_mode buffered` turns it off, as JAX's `not
+    buffered.is_buffered(cfg)` clause does: the kernel applies the round's
+    updates at once, and the buffer must hold them until its commit."""
     return (cfg.use_fused and cfg.aggr in ("avg", "sign") and cfg.noise == 0
+            and not buffered.is_buffered(cfg)
             and not cfg.diagnostics and not cfg.faults_enabled
             and not cfg.churn_enabled and not cfg.traffic_enabled
             and not compile_cache.is_cohort_mode(cfg)
@@ -334,22 +364,7 @@ def server_path(params, updates, sizes, cfg, noise=None, draw=None,
     agent norms and (RLR on) the flat lr, and the health lanes over it.
     Returns (new params, {fault_*, rep_*, tel_*, agent_norms, lr_flat and
     hlth_* lanes})."""
-    mask, info = None, {}
-    if draw is not None:
-        if cfg.corrupt_rate > 0:
-            updates = fmodel.inject_corrupt(updates, draw.corrupt,
-                                            cfg.corrupt_mode)
-        mask = draw.participate & fmodel.payload_valid(
-            updates, cfg.payload_norm_cap)
-        info.update(fmodel.fault_scalars(draw, mask))
-    if qmask is not None:
-        mask = qmask if mask is None else mask & qmask
-        if draw is not None:
-            info["fault_voters"] = masking.count_f32(mask)
-            if cfg.churn_enabled:
-                info["churn_away"] = churn.churn_away(qmask)
-        elif cfg.churn_enabled:
-            info.update(churn.churn_only_scalars(qmask, mask))
+    updates, mask, info = _participation(cfg, updates, draw, qmask)
     if lanes:
         info.update(reputation.lanes(updates, mask))
     if cfg.telemetry == "off" and not cfg.diagnostics:
@@ -369,6 +384,68 @@ def server_path(params, updates, sizes, cfg, noise=None, draw=None,
         info.update(health_sentinel.sentinel(cfg, updates, new_params,
                                              mask=mask))
     return new_params, info
+
+
+def _participation(cfg, updates, draw=None, qmask=None):
+    """(updates, mask, info) of `server_path`'s first steps: with a fault
+    draw the corrupt payloads injected, mask = participate &
+    payload_valid and the Faults/* scalars; mask &= qmask and the churn
+    counts. mask is None when neither is given."""
+    mask, info = None, {}
+    if draw is not None:
+        if cfg.corrupt_rate > 0:
+            updates = fmodel.inject_corrupt(updates, draw.corrupt,
+                                            cfg.corrupt_mode)
+        mask = draw.participate & fmodel.payload_valid(
+            updates, cfg.payload_norm_cap)
+        info.update(fmodel.fault_scalars(draw, mask))
+    if qmask is not None:
+        mask = qmask if mask is None else mask & qmask
+        if draw is not None:
+            info["fault_voters"] = masking.count_f32(mask)
+            if cfg.churn_enabled:
+                info["churn_away"] = churn.churn_away(qmask)
+        elif cfg.churn_enabled:
+            info.update(churn.churn_only_scalars(qmask, mask))
+    return updates, mask, info
+
+
+def buffered_path(carry, updates, sizes, cfg, noise=None, draw=None,
+                  qmask=None, flags=None, lanes: bool = False, lat=None):
+    """The buffered tick after local training and the attack, in JAX
+    `_round_core`'s order (fl/rounds.py:323-362): the participation mask
+    as in `server_path`; the tick's contributions by arrival level (`lat`,
+    the [m] latency draw, or None: everything arrives now); the fold and
+    the commit gate (fl/buffered.fold_commit); the Async/* values; the
+    telemetry over the commit decision, with the buffer's sign sums as
+    its electorate; with `lanes`, rep_agree against the buffer's
+    accumulated vote and rep_norm, over the masked stack; the health
+    lanes over the committed params. `carry` and the returned carry are
+    fl/buffered.join_carry's."""
+    params, state = buffered.split_carry(carry)
+    updates, mask, info = _participation(cfg, updates, draw, qmask)
+    m = next(iter(updates.values())).shape[0]
+    contribs = buffered.tick_contributions(cfg, updates, sizes, mask, lat)
+    new_params, new_state, lr, agg, extras, vote_sign = \
+        buffered.fold_commit(cfg, params, state, contribs, noise, m)
+    info.update(extras)
+    if cfg.telemetry != "off":
+        info.update(telemetry.compute(
+            cfg, updates, lr if cfg.robustLR_threshold > 0 else None, agg,
+            mask=mask, corrupt_flags=flags, sign_sums=vote_sign,
+            vote_range=buffered.vote_range(cfg)))
+    if lanes:
+        # agreement with the buffer's accumulated vote, the electorate the
+        # commit thresholds, not with this tick's own sign sums
+        u_rep = updates if mask is None else masking.zero_masked(updates,
+                                                                 mask)
+        info["rep_agree"] = reputation.agree_rows(u_rep, vote_sign,
+                                                  mask=mask)
+        info["rep_norm"] = reputation.norm_rows(u_rep, mask=mask)
+    if health_sentinel.health_on(cfg):
+        info.update(health_sentinel.sentinel(cfg, updates, new_params,
+                                             mask=mask))
+    return buffered.join_carry(new_params, new_state), info
 
 
 def corrupt_slots(cfg, sampled) -> torch.Tensor:
@@ -395,8 +472,8 @@ def adversary_inputs(cfg, rnd: int, sampled, device, active=None):
     return tuple(None if t is None else t.to(device) for t in (hits, flags))
 
 
-def draw_faults(cfg, rng: RoundRNG, rnd: int, sampled, device, active=None):
-    """Round rnd's fault draw for the sampled ids on `device`, or None
+def draw_faults_host(cfg, rng: RoundRNG, rnd: int, sampled, active=None):
+    """Round rnd's fault draw for the sampled ids on the host, or None
     when cfg has no faults (the dense round as before). The spared
     attackers are the sampled corrupt ids (on the cohort round, the
     active ones)."""
@@ -405,9 +482,30 @@ def draw_faults(cfg, rng: RoundRNG, rnd: int, sampled, device, active=None):
     corrupt = corrupt_slots(cfg, sampled)
     if active is not None:
         corrupt = corrupt & torch.as_tensor(np.asarray(active, dtype=bool))
-    return fmodel.draw_to(
-        fmodel.sample_faults(cfg, rng.faults(rnd), len(sampled), corrupt),
-        device)
+    return fmodel.sample_faults(cfg, rng.faults(rnd), len(sampled), corrupt)
+
+
+def draw_faults(cfg, rng: RoundRNG, rnd: int, sampled, device, active=None):
+    """`draw_faults_host`'s draw on `device`."""
+    draw = draw_faults_host(cfg, rng, rnd, sampled, active)
+    return None if draw is None else fmodel.draw_to(draw, device)
+
+
+def tick_inputs(cfg, rng: RoundRNG, rnd: int, sampled, device, faults=None,
+                active=None):
+    """(fault draw, latency) of round rnd on `device`: the fault draw
+    (`faults` when given), and under --agg_mode buffered the [m] int32
+    arrival latency drawn from its straggler flags (fl/buffered.latency,
+    on the host before the flags go to the card), else None."""
+    host = None
+    if faults is None:
+        host = draw_faults_host(cfg, rng, rnd, sampled, active)
+        faults = None if host is None else fmodel.draw_to(host, device)
+    if not buffered.is_buffered(cfg) or faults is None:
+        return faults, None
+    lat = buffered.latency(cfg, rng.latency(rnd), (
+        faults if host is None else host).straggler)
+    return faults, None if lat is None else _to_device(lat, device)
 
 
 def _run_chunked(block_fn, params, agents, perms, keep, chunk: int,
@@ -556,24 +654,35 @@ def _device_round(cfg, trainer, qset=None):
     cohort's padding (None without), ANDed with the quarantine's into
     JAX's churn_active. With the reputation lanes on
     (obs/reputation.reputation_on), the round's info holds rep_agree and
-    rep_norm ([m] each)."""
+    rep_norm ([m] each). Under --agg_mode buffered `params` is the carry
+    (fl/buffered.join_carry), `lat` the tick's latency draw, the
+    stragglers train full epochs and `buffered_path` is the tail."""
     lanes = reputation.reputation_on(cfg)
+    is_buffered = buffered.is_buffered(cfg)
 
     def device_round(params, agents, perms, keep, noise, draw=None,
                      data=None, hits=None, flags=None, active=None,
-                     ids=None):
+                     ids=None, lat=None):
+        # buffered mode turns the straggler flags into late uploads of
+        # full epochs (JAX fl/rounds.py:258-266)
         ep_budget = (draw.ep_budget
-                     if draw is not None and cfg.straggler_rate > 0 else None)
-        updates, losses = trainer.run(params, agents, perms, keep, data,
-                                      ep_budget)
+                     if draw is not None and cfg.straggler_rate > 0
+                     and not is_buffered else None)
+        updates, losses = trainer.run(buffered.model_params(params), agents,
+                                      perms, keep, data, ep_budget)
         updates = attack_registry.apply_update_attack(cfg, updates, hits)
         sizes = (trainer.sizes_dev if data is None else data[2])[agents]
         qmask = (None if qset is None else health_sentinel.quarantine_mask(
             cfg, agents if ids is None else ids, qset))
         if active is not None:
             qmask = active if qmask is None else active & qmask
-        new_params, info = server_path(params, updates, sizes, cfg, noise,
-                                       draw, qmask, flags, lanes)
+        if is_buffered:
+            new_params, info = buffered_path(params, updates, sizes, cfg,
+                                             noise, draw, qmask, flags,
+                                             lanes, lat)
+        else:
+            new_params, info = server_path(params, updates, sizes, cfg,
+                                           noise, draw, qmask, flags, lanes)
         return new_params, {"train_loss": torch.mean(losses), **info}
     return device_round
 
@@ -590,9 +699,12 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
     `sampled` ([m] ids) and `perms` (per sampled slot, cfg.local_ep
     permutations) replace the draws from `rng`; dropout=False runs local
     training without dropout; `faults` (a FaultDraw) replaces the round's
-    fault draw. A `--quarantine` set leaves its clients out of every vote.
+    fault draw (and under --agg_mode buffered the stragglers the latency is
+    drawn for). A `--quarantine` set leaves its clients out of every vote.
     An update attack scales the rows of the slots it hits
-    (`adversary_inputs`, made for each round on the host).
+    (`adversary_inputs`, made for each round on the host). Under
+    --agg_mode buffered `params` is the carry (fl/buffered.join_carry) and
+    so is what it returns.
 
     `capture` (default: on a CUDA device) runs the round's device work as
     one CUDA graph (utils/compile_cache.RoundGraph): the first round
@@ -618,14 +730,13 @@ def make_round_fn(cfg, model, normalize, images, labels, sizes,
         sampled = [int(a) for a in sampled]
         draws = trainer.draw(rng, rnd, sampled, 0, len(sampled), perms,
                              dropout)
-        noise = draw_noise(params, cfg, rng.noise)
-        if faults is None:
-            faults = draw_faults(cfg, rng, rnd, sampled, device)
+        noise = draw_noise(buffered.model_params(params), cfg, rng.noise)
+        faults, lat = tick_inputs(cfg, rng, rnd, sampled, device, faults)
         here = presence(cfg, sampled, rnd)
         new_params, info = step(params, *draws, noise, faults, None,
                                 *adversary_inputs(cfg, rnd, sampled, device),
                                 None if here is None
-                                else _to_device(here, device))
+                                else _to_device(here, device), None, lat)
         return new_params, {**info, "sampled": sampled}
 
     round_fn.graph = step if capture else None
@@ -658,6 +769,8 @@ def make_host_step(cfg, model, normalize, sizes, n_total: int, device):
         raise ValueError(
             "diurnal traffic (--traffic diurnal) is not supported in "
             "host-sampled mode; run device-resident or cohort-sampled")
+    if buffered.is_buffered(cfg):
+        raise ValueError(BUFFERED_HOST_SAMPLED)
     if health_sentinel.has_quarantine(cfg):
         raise ValueError(
             "--quarantine is not supported in host-sampled mode (the "
@@ -837,10 +950,10 @@ def make_cohort_step(cfg, model, normalize, n_total: int, device):
         cfg, trainer, health_sentinel.quarantine_set(cfg, device))
 
     def step(params, ids, active, imgs, lbls, slot_sizes, perms, keep,
-             noise, draw=None, hits=None, flags=None):
+             noise, draw=None, hits=None, flags=None, lat=None):
         return device_round(params, slots, perms, keep, noise, draw,
                             (imgs, lbls, slot_sizes), hits, flags, active,
-                            ids)
+                            ids, lat)
     step.trainer = trainer
     return step
 
@@ -886,16 +999,16 @@ def make_cohort_round_fn(cfg, model, normalize, n_total: int, device,
             active &= ~np.isin(ids, health_sentinel.quarantine_ids(cfg))
         _, slot_perms, keep = cohort_step.trainer.draw(
             rng, rnd, ids, 0, m, perms, dropout, slot_sizes=host_sizes)
-        noise = draw_noise(params, cfg, rng.noise)
-        if faults is None:
-            faults = draw_faults(cfg, rng, rnd, ids, device, active)
+        noise = draw_noise(buffered.model_params(params), cfg, rng.noise)
+        faults, lat = tick_inputs(cfg, rng, rnd, ids, device, faults,
+                                  active)
         ids_dev, act_dev = (_to_device(torch.as_tensor(a), device)
                             for a in (np.asarray(ids, dtype=np.int64),
                                       active))
         new_params, info = step(
             params, ids_dev, act_dev, imgs, lbls, slot_sizes, slot_perms,
             keep, noise, faults,
-            *adversary_inputs(cfg, rnd, ids, device, active))
+            *adversary_inputs(cfg, rnd, ids, device, active), lat)
         return new_params, {**info, "sampled": ids}
 
     round_fn.graph = step if capture else None

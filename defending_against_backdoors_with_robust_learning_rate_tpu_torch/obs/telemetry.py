@@ -24,9 +24,15 @@ quarantine) are zeroed before the stats. The telemetry reads the explicit
 lr and aggregate trees, so it turns the fused server kernel off, as JAX's
 ``cfg.telemetry == "off"`` clause of `_pallas_applicable` does.
 
+Under ``--agg_mode buffered`` (fl/buffered.py) `compute` takes the
+buffer's accumulated sign sums (`sign_sums`), so the margin histogram
+describes the buffered electorate, bucketized over its `vote_range`
+(K + m); under ``full`` the fold adds the per-staleness split
+``tel_stale_flip`` and ``tel_stale_cos`` ([S+1] each,
+fl/buffered._per_bin_split), one Defense/Stale_* row per bin.
+
 Not ported: `compute_sharded`, `shard_vote_stats` and
-`compute_sharded_bucket` (the sharded round refuses ``--telemetry``), and
-the buffered path's `sign_sums` / `vote_range` arguments, kept as None.
+`compute_sharded_bucket` (the sharded round refuses ``--telemetry``).
 """
 
 from __future__ import annotations
@@ -54,6 +60,10 @@ TAGS = {
     "tel_margin_hist": "Defense/Vote_Margin_Hist",
     "tel_cos_honest": "Defense/Cosine_Honest_To_Agg",
     "tel_cos_corrupt": "Defense/Cosine_Corrupt_To_Agg",
+    # the buffered path's per-staleness-bin split (--telemetry full): one
+    # row per staleness bin
+    "tel_stale_flip": "Defense/Stale_Flip_Fraction",
+    "tel_stale_cos": "Defense/Stale_Cosine_To_Agg",
 }
 
 
@@ -161,12 +171,12 @@ def compute(cfg, updates, lr, agg, mask=None, corrupt_flags=None,
     """Telemetry dict of the dense round. `updates` are [m, ...] tensors;
     `lr` the robust-lr dict or None (RLR off); `agg` the aggregate dict;
     `mask` the [m] participation mask or None; `corrupt_flags` the [m]
-    corrupt-slot flags or None (no split known). `sign_sums` and
-    `vote_range` belong to JAX's buffered path and must stay None."""
-    if sign_sums is not None or vote_range is not None:
-        raise ValueError("the buffered path's telemetry (sign_sums, "
-                         "vote_range) is not ported yet")
+    corrupt-slot flags or None (no split known). `sign_sums`, when given,
+    is an accumulated sign-sum dict whose margins the vote thresholds (the
+    buffered path's); `vote_range` then widens the bucketization range
+    to that electorate's (default: m)."""
     m = next(iter(updates.values())).shape[0]
+    vr = vote_range or m
     if mask is not None:
         updates = masking.zero_masked(updates, mask)
     out = _norm_percentiles(per_agent_norms(updates))
@@ -178,14 +188,15 @@ def compute(cfg, updates, lr, agg, mask=None, corrupt_flags=None,
     counts = torch.zeros(N_MARGIN_BUCKETS, dtype=torch.float32,
                          device=device)
     margin_sum = torch.zeros((), dtype=torch.float32, device=device)
-    for u in updates.values():
-        uf = u.reshape(m, -1).to(torch.float32)
-        c, ms = _bucketize_margins(torch.abs(torch.sum(torch.sign(uf),
-                                                       dim=0)), m)
+    if sign_sums is None:
+        sign_sums = {k: torch.sum(torch.sign(u.reshape(m, -1).to(
+            torch.float32)), dim=0) for k, u in updates.items()}
+    for s in sign_sums.values():
+        c, ms = _bucketize_margins(torch.abs(s), vr)
         counts, margin_sum = counts + c, margin_sum + ms
     dots, usq = _cosine_accumulators(updates, agg, m)
     total = sum(u.numel() // m for u in updates.values())
-    out.update(_finish_margins(counts, margin_sum, total, m))
+    out.update(_finish_margins(counts, margin_sum, total, vr))
     corrupt = (torch.zeros(m, dtype=torch.bool, device=device)
                if corrupt_flags is None else corrupt_flags)
     valid = (torch.ones(m, dtype=torch.bool, device=device)

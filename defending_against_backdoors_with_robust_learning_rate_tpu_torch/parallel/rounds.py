@@ -38,7 +38,8 @@ sampled ids and the schedule gate, which every rank computes alike on the
 host, so the attack adds no collective; K2 then reads the scaled block.
 
 Not ported: the bucket layout, comed/trmean/krum/rfa (all_to_all), server
-noise, faults, churn, quarantine, tenants, buffered mode, diagnostics,
+noise, faults, churn, quarantine, tenants, buffered mode (ROADMAP queue 1
+item 11; refused by name), diagnostics,
 telemetry (JAX obs/telemetry.compute_sharded, shard_vote_stats) and the
 reputation lanes (``--reputation on`` is refused; train.run resolves
 ``auto`` off here and refuses checkpoints).
@@ -54,6 +55,10 @@ import torch
 
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
     registry as attack_registry)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
+    BUFFERED_SHARDED_NOT_PORTED)
+from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+    buffered)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
     RoundRNG, _fused_applicable, make_block_trainer, sample_agents)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
@@ -194,6 +199,8 @@ def _check_sharded(cfg, group: AgentsGroup) -> int:
     if cfg.noise > 0:
         raise ValueError("server noise on the sharded round is not ported "
                          "yet (it needs one replicated noise draw)")
+    if buffered.is_buffered(cfg):
+        raise ValueError(BUFFERED_SHARDED_NOT_PORTED)
     if cfg.faults_enabled:
         raise ValueError("faults (--dropout_rate, --straggler_rate, "
                          "--corrupt_rate, --payload_norm_cap) on the sharded "

@@ -98,9 +98,22 @@ host stacks, with JAX's line, or raises JAX's error when it cannot.
 Churn and traffic on the dense round mask its sampled ids (fl/rounds.
 presence); under churn the boundary writes Churn/Sampled_Away after the
 Faults/* rows (JAX train.py:1371-1373). Refused with their ROADMAP
-items: the sharded cohort round and churn or traffic on the sharded
-round (item 11), `--agg_mode buffered` and `--tenants` (item 12),
-`--chaos` (item 15).
+items: the sharded cohort round, churn or traffic and `--agg_mode
+buffered` on the sharded round (item 11), `--tenants` and `--chaos`
+(item 15).
+
+Buffered-async aggregation (`--agg_mode buffered`, fl/buffered.py; JAX
+train.py:219-226, :697-718): checked and its `[async]` banner printed
+before anything is built; refused in host-sampled mode and on the sharded
+round (JAX's multi-process refusal), with JAX's messages. The loop's
+params are then the carry (fl/buffered.join_carry: the model params and
+the buffer state in one dict), so the captured round, the chained round
+and the checkpoint carry the buffer beside the params, and a run cut
+between commits resumes to the straight run's params and rows; eval, the
+finite bit and the summary read the bare model params (JAX
+train.py:1055-1059). Each boundary writes the Async/Buffer_Fill,
+Async/Committed and Async/Staleness_Hist/<b> rows after the Faults/*
+rows (JAX train.py:1374-1386).
 """
 
 from __future__ import annotations
@@ -115,8 +128,9 @@ import torch
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.attack import (
     registry as attack_registry)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.config import (
-    RLR_ADAPT_NOT_PORTED, SHARDED_COHORT_NOT_PORTED, Config, args_parser,
-    check_not_ported, print_exp_details)
+    BUFFERED_HOST_SAMPLED, BUFFERED_SHARDED_NOT_PORTED, RLR_ADAPT_NOT_PORTED,
+    SHARDED_COHORT_NOT_PORTED, Config, args_parser, check_not_ported,
+    print_exp_details)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data import (
     cohort as cohort_mod)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.prefetch import (
@@ -126,7 +140,7 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.data.regist
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.common import (
     make_normalizer)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
-    diagnostics)
+    buffered, diagnostics)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.evaluate import (
     make_eval_fn, pad_eval_set)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.rounds import (
@@ -149,7 +163,8 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils impor
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.guards import (
     all_finite_device)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.metrics import (
-    FAULT_TAGS, MetricsDrain, MetricsWriter, fault_rows, fetch, run_name)
+    FAULT_TAGS, MetricsDrain, MetricsWriter, async_rows, fault_rows, fetch,
+    run_name)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -283,6 +298,8 @@ def _agents_group(cfg: Config) -> Optional[AgentsGroup]:
 def _sharded_cfg(cfg: Config, say) -> Config:
     """cfg for the sharded round: what it has not ported refused, and
     `--reputation auto` resolved off, with a printed line."""
+    if buffered.is_buffered(cfg):
+        raise ValueError(BUFFERED_SHARDED_NOT_PORTED)
     if (cfg.churn_enabled or cfg.traffic_enabled
             or compile_cache.is_cohort_mode(cfg)):
         raise ValueError(SHARDED_COHORT_NOT_PORTED)
@@ -368,6 +385,8 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     # unknown strategy, bad boost, a schedule on a data-side strategy)
     attack_registry.check(cfg)
     obs_reputation.check(cfg)
+    # the buffered compositions JAX refuses, each naming its remedy
+    buffered.check(cfg)
     if cfg.rlr_adapt == "on":
         raise ValueError(RLR_ADAPT_NOT_PORTED)
     check_not_ported(cfg)
@@ -389,6 +408,9 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     atk_banner = attack_registry.banner(cfg)
     if atk_banner:
         say(atk_banner)
+    async_banner = buffered.banner(cfg)
+    if async_banner:
+        say(async_banner)
     if cfg.telemetry != "off":
         say(f"[telemetry] in-jit defense telemetry: {cfg.telemetry} "
             f"(Defense/* scalars ride the metrics stream)")
@@ -434,6 +456,13 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             f"{cfg.rep_population_cap:,}: count-min sketch + "
             f"top-{cfg.rep_topk} heavy-hitter ledger "
             f"(O(cohort + k) RSS)")
+    is_buffered = buffered.is_buffered(cfg)
+    if is_buffered:
+        # the loop's params become the (params, buffer) carry: the
+        # captured and chained rounds and the checkpoint carry the buffer
+        # beside the params (JAX train.py:709-718)
+        params = buffered.join_carry(params,
+                                     buffered.init_state(cfg, params, True))
     start_round, cum_poison_acc, cum_net_mov = 0, 0.0, 0.0
     health_ema = None
     if cfg.resume and cfg.checkpoint_dir:
@@ -472,6 +501,8 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
         cohort_mode, host_mode = True, False
         say(f"[cohort] host-sampled + {what}: cohorts are sampled from the "
             f"{what}-present set (the refusal path is retired)")
+    if is_buffered and host_mode:
+        raise ValueError(BUFFERED_HOST_SAMPLED)
     # the snap rounds of --diagnostics run a second round fn, with the
     # plain server step and the diagnostics' extras; every other round
     # runs the round fn of cfg without them (JAX's plain/diag pair)
@@ -575,8 +606,8 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
         it in line, async mode on the drain's thread: one code path, so
         metrics.jsonl is the same in both."""
         host, rep_rows = fetched
-        vals = {k: (v.tolist() if k.startswith(obs_telemetry.PREFIX)
-                    else float(v)) for k, v in host.items()}
+        vals = {k: (v.tolist() if getattr(v, "ndim", 0) else float(v))
+                for k, v in host.items()}
         now = time.perf_counter()
         elapsed = now - clock["t_loop"]
         # the health policy first, as JAX's _emit_eval_body: its rows, then
@@ -594,7 +625,7 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
         writer.scalar("Poison/Cumulative_Poison_Accuracy_Mean", cum / rnd,
                       rnd)
         writer.scalar("Train/Loss", vals["train_loss"], rnd)
-        for tag, value in fault_rows(vals).items():
+        for tag, value in {**fault_rows(vals), **async_rows(vals)}.items():
             writer.scalar(tag, value, rnd)
         obs_telemetry.emit_scalars(writer, vals, rnd)
         if tracker is not None:
@@ -691,13 +722,15 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                                                 pval, cum_net_mov)
             if rnd % cfg.snap or not lead:
                 continue
-            val_loss, val_acc, per_class = eval_fn(params, *val)
-            poison_loss, poison_acc, _ = eval_fn(params, *pval)
+            # eval and the finite bit read the bare model params
+            model_params = buffered.model_params(params)
+            val_loss, val_acc, per_class = eval_fn(model_params, *val)
+            poison_loss, poison_acc, _ = eval_fn(model_params, *pval)
             # the boundary's device values, copied out of the replay's
             # buffers (the next replay overwrites them); every scalar comes
             # back to the host in one copy (`fetch`), in line or on the
             # drain's thread. The defense telemetry rides the same copy.
-            dev = {"finite": all_finite_device(params),
+            dev = {"finite": all_finite_device(model_params),
                    "val_loss": val_loss, "val_acc": val_acc,
                    "base_acc": per_class[cfg.base_class],
                    "poison_loss": poison_loss, "poison_acc": poison_acc,
@@ -705,7 +738,9 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                        "train_loss",
                        *health_sentinel.boundary_keys(cfg),
                        *(k for k in FAULT_TAGS if k in info),
-                       *(k for k in ("churn_away",) if k in info),
+                       *(k for k in ("churn_away",
+                                     *buffered.ASYNC_INFO_KEYS)
+                         if k in info),
                        *(k for k in info
                          if k.startswith(obs_telemetry.PREFIX)))}}
             if drain is not None:
@@ -736,7 +771,9 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
             f"on {device}, eval included"
             + (f"; {steady:.3f} steady, after the first dispatch"
                if steady is not None else ""))
-    summary["params"] = params
+    summary["params"], state = buffered.split_carry(params)
+    if is_buffered:
+        summary["buffer"] = state
     summary["cum_net_mov"] = cum_net_mov
     summary["all_reduces"] = group.calls if group is not None else 0
     return summary

@@ -19,7 +19,10 @@ random streams (`fl/rounds.RoundRNG.state_dict`: its round counter and the
 host and noise generators' states, with the device type that wrote
 them), ``cum_poison_acc`` and ``cum_net_mov`` (the running sum of the
 Sign/* diagnostic). It is the counterpart of JAX's (params, round, PRNG
-key, cum_poison_acc, cum_net_mov).
+key, cum_poison_acc, cum_net_mov). Under `--agg_mode buffered` the
+params are the round's carry (fl/buffered.join_carry): the buffer state
+is saved and restored beside the params under its `@async/` names, so a
+run cut between commits resumes to the straight run.
 
 `restore` skips a checkpoint whose digest does not match its directory
 (truncated or corrupt) and falls back to the newest valid one, printing

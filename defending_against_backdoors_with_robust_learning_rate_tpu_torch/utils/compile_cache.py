@@ -128,6 +128,12 @@ class RoundGraph:
     dtypes or structure raises, and a capture that fails raises: nothing
     falls back to eager on the card.
 
+    The params may be a carry (fl/buffered.join_carry: the buffered
+    round's state under `@async/` names beside the params, all f32): the
+    capture writes back every entry of the dict fn returns, so the state
+    a replay leaves is the next replay's input. fn must return the dict
+    with the keys and order it took (the spec check above).
+
     Kernels launched inside the capture are not counted as they are
     captured (ops/rlr_fused.py counts them as captured); each replay adds
     them to `rlr_fused.LAUNCHES`, since each replay launches them once.

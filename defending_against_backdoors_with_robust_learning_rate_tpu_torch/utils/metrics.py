@@ -18,7 +18,8 @@ one source of their names), all five of JAX's: the three lanes, the loss
 z-score and the norm-spike bit. `FAULT_TAGS` are the Faults/* rows JAX's
 train.py:1362-1370 writes from a faults round's scalars
 (faults/model.fault_scalars), in that order, and `CHURN_TAG` the row it
-writes after them under churn (train.py:1371-1373).
+writes after them under churn (train.py:1371-1373); `async_rows` the
+buffered path's Async/* rows it writes next (train.py:1374-1386).
 """
 
 from __future__ import annotations
@@ -55,22 +56,42 @@ def fault_rows(vals) -> dict:
     return rows
 
 
+def async_rows(vals) -> dict:
+    """{tag: value} of the buffered path's values in a boundary's host
+    values (empty off that path): the buffer's fill, whether the tick
+    committed, and the arrivals per staleness bin since the last commit,
+    one Async/Staleness_Hist/<b> row a bin (JAX train.py:1374-1386)."""
+    if "async_fill" not in vals:
+        return {}
+    rows = {"Async/Buffer_Fill": vals["async_fill"],
+            "Async/Committed": vals["async_committed"]}
+    for i, c in enumerate(vals["async_stale_hist"]):
+        rows[f"Async/Staleness_Hist/{i}"] = c
+    return rows
+
+
 def run_name(cfg) -> str:
     """Hyperparam-derived run dir name (reference src/federated.py:27-31,
     without its time prefix): a pure function of the config. Churn,
     diurnal traffic and the cohort round add JAX's `-chrn:`, `-tfc:` and
     `-coh:` cells (population, cohort, partitioner, cohort seed), and a
     non-static attack JAX's `-atk:` cell (strategy, boost, poison_frac,
-    and the schedule when it is not trivial), so runs differing only in
+    and the schedule when it is not trivial), and `--agg_mode buffered`
+    JAX's `-agm:` cell (commit threshold, staleness exponent and range)
+    and the latency sigma in the traffic cell, so runs differing only in
     those do not share a run dir."""
-    churn = traffic = cohort = ""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        buffered)
+    churn = traffic = cohort = agm = ""
     if cfg.churn_enabled:
         churn = (f"-chrn:a{cfg.churn_available}p{cfg.churn_period}"
                  f"s{cfg.churn_seed}")
     if cfg.traffic_enabled:
         traffic = (f"-tfc:{cfg.traffic}p{cfg.traffic_peak_frac}"
                    f"t{cfg.traffic_trough_frac}d{cfg.traffic_day_rounds}"
-                   f"s{cfg.traffic_seed}")
+                   + (f"l{cfg.traffic_latency_sigma}"
+                      if buffered.is_buffered(cfg) else "")
+                   + f"s{cfg.traffic_seed}")
     from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
         compile_cache)
     if compile_cache.is_cohort_mode(cfg) or cfg.churn_enabled:
@@ -88,12 +109,15 @@ def run_name(cfg) -> str:
         if not attack_schedule.is_trivial(cfg):
             atk += (f"s{cfg.attack_start}e{cfg.attack_every}"
                     + (f"t{cfg.attack_stop}" if cfg.attack_stop else ""))
+    if buffered.is_buffered(cfg):
+        agm = (f"-agm:bufK{buffered.buffer_k(cfg)}"
+               f"a{cfg.async_staleness_exp}S{cfg.async_max_staleness}")
     return (f"clip_val:{cfg.clip}"
             f"-noise_std:{cfg.noise}-aggr:{cfg.aggr}"
             f"-s_lr:{cfg.effective_server_lr}-num_cor:{cfg.num_corrupt}"
             f"-thrs_robustLR:{cfg.robustLR_threshold}"
             f"-pttrn:{cfg.pattern_type}-seed:{cfg.seed}"
-            f"{churn}{traffic}{cohort}{atk}")
+            f"{churn}{traffic}{cohort}{atk}{agm}")
 
 
 def fetch(tree):

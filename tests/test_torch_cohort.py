@@ -176,10 +176,15 @@ def test_population_cli_and_refusals(capsys):
                 ["--cohort_sampled", "maybe"], ["--agg_mode", "eventual"]):
         assert (_parse_error(config.args_parser, bad, capsys)
                 == _parse_error(jax_args_parser, bad, capsys)), bad
+    # buffered aggregation is ported (slice 11): parsed with JAX's fields
+    argv = ["--agg_mode", "buffered", "--async_buffer_k", "5",
+            "--async_staleness_exp", "0.5", "--async_max_staleness", "3"]
+    cfg, jcfg = config.args_parser(argv), jax_args_parser(argv)
+    for name in ("agg_mode", "async_buffer_k", "async_staleness_exp",
+                 "async_max_staleness"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
     # what stays refused, by its ROADMAP item
-    for argv, text in ((["--agg_mode", "buffered"],
-                        config.BUFFERED_NOT_PORTED),
-                       (["--tenants", "4"], config.TENANTS_NOT_PORTED),
+    for argv, text in ((["--tenants", "4"], config.TENANTS_NOT_PORTED),
                        (["--chaos", "bank_corrupt@0"],
                         config.CHAOS_NOT_PORTED)):
         with pytest.raises(ValueError) as e:

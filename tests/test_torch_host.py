@@ -236,10 +236,13 @@ def test_host_sampling_prefetch_and_cli(tmp_path, capsys):
 
     # refusals: what this port has not ported yet, and JAX's own error for
     # a --host_sampled value that is not a choice
-    for argv in (["--tenants", "2"], ["--agg_mode", "buffered"],
-                 ["--rlr_adapt", "on"]):
+    for argv in (["--tenants", "2"], ["--rlr_adapt", "on"]):
         with pytest.raises(ValueError, match="not ported yet"):
             train.args_parser(argv)
+    # buffered aggregation is ported (slice 11); its host-sampled step
+    # refuses it, as JAX's does
+    assert train.args_parser(["--agg_mode", "buffered"]).agg_mode == \
+        "buffered"
     for bad in (["--host_sampled", "sometimes"],
                 ["--remat", "--remat_policy", "layer"]):
         assert (_parse_error(train.args_parser, bad, capsys)

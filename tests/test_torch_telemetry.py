@@ -164,9 +164,14 @@ def test_compute_matches_jax():
     for mod in (telemetry, jax_telemetry):
         with pytest.raises(ValueError, match="telemetry must be one of"):
             mod.check_level("loud")
-    with pytest.raises(ValueError, match="not ported yet"):
-        telemetry.compute(Config(telemetry="full"), t(ups), None, t(agg),
-                          sign_sums=t(agg))
+    # the buffered path's electorate (ported in slice 11): an accumulated
+    # sign-sum dict, bucketized over a widened vote range, as JAX's
+    sums = {k: 2 * np.sign(u).sum(axis=0) for k, u in ups.items()}
+    _same(telemetry.compute(Config(telemetry="full"), t(ups), None, t(agg),
+                            sign_sums=t(sums), vote_range=2 * m + 1),
+          jax_telemetry.compute(JaxConfig(telemetry="full"), ups, None, agg,
+                                sign_sums=sums, vote_range=2 * m + 1),
+          "sign_sums")
 
 
 def test_round_lanes_and_cli_rows_match_jax(tmp_path):
