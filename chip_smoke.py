@@ -63,7 +63,22 @@ that prints no result lines):
    of a rank's block; one round's updates through the sharded server
    step against K1 on the whole stack; and one signflip round on each
    rank (K2 once, the same 3 all_reduces) with K2 held to its plain
-   version on the rank's scaled block.
+   version on the rank's scaled block. Then the sharded server surface
+   on each rank's saved round-1 block (no more training): comed, trmean,
+   krum and rfa over the all_to_all transpose, avg + RLR 4 with --noise
+   0.001, avg and sign + RLR 4 on the bucket layout, avg + RLR 4 under a
+   fixed fault draw (two dropped, a payload cap that rejects the two
+   largest updates) with --quarantine 0, and --telemetry full on both
+   layouts, each against the dense plain server step
+   (fl/rounds.server_path) on the concatenated stack (sign, comed,
+   krum, the masks and the Faults/* values exact; avg, trmean, rfa and
+   the noise within TOL; the Defense/* values within 1e-5 relative),
+   each rank's collectives kind by kind equal to the plan
+   (parallel/multihost.plan_collectives); and one 2-round run through
+   train.run on the ranks under --agg_layout bucket --telemetry full
+   --dropout_rate 0.2 --quarantine 0 (K1 and K2 0 launches, the plan's
+   collectives twice, finite rows, its rounds/s), with each rank's host
+   time inside the collectives, by kind.
 9. nccl d=1: one sharded round at d = 1 over NCCL in a process of its
    own, configured by the flags a multi-card launch passes.
 10. cifar10: the paper's CIFAR-10 DBA triple (reference src/runner.sh:
@@ -212,7 +227,8 @@ phases 5, 10, 11, 13, 14, 15, 16, 17, 18 and 19, by path in
 19's `buffered` at 0: their server step is the plain one or the buffered
 fold; phase 17's `chain host` once a round), `shapes`
 holds phase 12's timings and `attack_stacks` phase 14's; K2's counts the
-sharded run's and the signflip round's) and `{"ok": true, "device":
+sharded run's and the signflip round's, and the bucket run's at 0) and
+`{"ok": true, "device":
 {...}}`. Without a CUDA device it exits with 1 before printing any
 result.
 """
@@ -2380,7 +2396,7 @@ def sharded_rank(rank: int, world: int, port: int) -> None:
         cfg = sharded_cfg()
         for k in rlr_fused.LAUNCHES:
             rlr_fused.LAUNCHES[k] = 0
-        group.calls = 0
+        group.reset_counts()
         summary = train.run(cfg, group=group)
         out = {"launches": dict(rlr_fused.LAUNCHES), "calls": group.calls,
                "summary": {k: v for k, v in summary.items()
@@ -2394,15 +2410,7 @@ def sharded_rank(rank: int, world: int, port: int) -> None:
                                                          group.device)
         # host time inside the all_reduces (gloo blocks the host; the
         # wait for the slowest rank is in it)
-        reduce_s = [0.0]
-        all_reduce = group.all_reduce_sum_
-
-        def timed_all_reduce(t):
-            t0 = time.perf_counter()
-            all_reduce(t)
-            reduce_s[0] += time.perf_counter() - t0
-            return t
-        group.all_reduce_sum_ = timed_all_reduce
+        group.reset_counts()
         walls = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -2410,9 +2418,9 @@ def sharded_rank(rank: int, world: int, port: int) -> None:
             params, _ = round_fn(params, rng)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        group.all_reduce_sum_ = all_reduce
         out["round_ms"] = walls
-        out["all_reduce_ms"] = reduce_s[0] * 1e3 / len(walls)
+        out["all_reduce_ms"] = (group.seconds["all_reduce"] * 1e3
+                                / len(walls))
         if rank == 0:
             out["profile"] = profile_round(lambda: round_fn(params, rng))
         else:
@@ -2444,6 +2452,10 @@ def sharded_rank(rank: int, world: int, port: int) -> None:
         # launches and all_reduces read around the round
         out["attack"] = signflip_round(rlr_fused, cfg, st, group, updates,
                                        sizes, sampled, lo, hi)
+        # the server surface on the same saved block, then its 2-round run
+        out["variants"] = server_variants(cfg, st, group, updates, sizes,
+                                          sampled, keep=rank == 0)
+        out["bucket_run"] = bucket_run(rlr_fused, cfg, group)
         if rank == 0:
             out.update(params1=cpu(p1),
                        steps={k: cpu(v) for k, v in steps.items()})
@@ -2499,6 +2511,175 @@ def signflip_round(rlr_fused, cfg, st, group, updates, sizes, sampled, lo,
         err = max(err, float((buf[o:o + n] - want_w).abs().max()))
     res.update(k2_err=err, negated=int(hits.sum()))
     return res
+
+
+VARIANT_SEED = 17           # the variants' noise generator, every side
+BUCKET_RUN_ROUNDS = 2
+
+
+def variant_cfgs(cfg, cap: float):
+    """The sharded server surface's variants of the attack + RLR 4 config:
+    the transpose rules, the noise, the bucket layout, a fault draw with
+    a payload cap and a quarantine set, and full telemetry on both
+    layouts."""
+    out = {rule: cfg.replace(aggr=rule)
+           for rule in ("comed", "trmean", "krum", "rfa")}
+    out.update({
+        "avg noise": cfg.replace(noise=0.001),
+        "avg bucket": cfg.replace(agg_layout="bucket"),
+        "sign bucket": cfg.replace(aggr="sign", agg_layout="bucket"),
+        "avg faults quarantine": cfg.replace(
+            dropout_rate=0.3, payload_norm_cap=cap, quarantine="0"),
+        "avg telemetry": cfg.replace(telemetry="full"),
+        "avg bucket telemetry": cfg.replace(agg_layout="bucket",
+                                            telemetry="full")})
+    return out
+
+
+def variant_inputs(c, params, sampled, device):
+    """A variant's (noise, fault draw, presence mask, corrupt flags), the
+    same on every rank and in the parent: the noise from VARIANT_SEED on
+    the card, a fixed draw (slots 3 and 8 dropped), the quarantine of the
+    sampled ids, the corrupt flags under full telemetry."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.faults import (
+        model as fmodel)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.health import (
+        sentinel)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.ops.aggregate import (
+        draw_noise)
+
+    noise = draw_noise(params, c, torch.Generator(device=device).manual_seed(
+        VARIANT_SEED))
+    draw = None
+    if c.faults_enabled:
+        m = len(sampled)
+        participate = torch.ones(m, dtype=torch.bool)
+        participate[[3, 8]] = False
+        draw = fmodel.draw_to(fmodel.FaultDraw(
+            participate, torch.zeros(m, dtype=torch.bool),
+            torch.full((m,), c.local_ep, dtype=torch.int32),
+            torch.zeros(m, dtype=torch.bool)), device)
+    qmask = sentinel.quarantine_mask(c, torch.as_tensor(sampled,
+                                                        device=device))
+    flags = (rounds.corrupt_slots(c, sampled).to(device)
+             if c.telemetry == "full" else None)
+    return noise, draw, qmask, flags
+
+
+def server_variants(cfg, st, group, updates, sizes, sampled, keep):
+    """Each variant's sharded server step on this rank's saved block: its
+    collectives by kind, the host time inside them, its wall, its
+    Faults/* and Defense/* values, and (`keep`) its new params. The
+    payload cap sits between the 8th and 9th largest of the round's
+    update norms (one all_gather before the counted steps), so the two
+    largest payloads are rejected."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl.diagnostics import (
+        per_agent_norms)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
+        rounds as prounds)
+
+    norms = sorted(group.all_gather(per_agent_norms(updates)).tolist())
+    cap = 0.5 * (norms[-3] + norms[-2])
+    res = {"cap": cap}
+    for label, c in variant_cfgs(cfg, cap).items():
+        noise, draw, qmask, flags = variant_inputs(c, st["params0"], sampled,
+                                                   group.device)
+        group.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, info, _, _ = prounds.sharded_server_path(
+            st["params0"], updates, sizes, c, group, noise, draw, qmask,
+            flags)
+        torch.cuda.synchronize()
+        res[label] = {
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "counts": dict(group.counts),
+            "seconds": dict(group.seconds),
+            "info": {k: v.cpu() for k, v in info.items()},
+            "new": {k: v.cpu() for k, v in new.items()} if keep else None}
+    return res
+
+
+def bucket_run(rlr_fused, cfg, group):
+    """The 2-round run under --agg_layout bucket --telemetry full
+    --dropout_rate 0.2 --quarantine 0 through train.run on this rank,
+    its counts set to 0 just before and read just after."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch import (
+        train)
+
+    c = cfg.replace(rounds=BUCKET_RUN_ROUNDS, snap=BUCKET_RUN_ROUNDS,
+                    agg_layout="bucket", telemetry="full", dropout_rate=0.2,
+                    quarantine="0",
+                    log_dir="build/chip_smoke/logs_sharded_bucket")
+    for k in rlr_fused.LAUNCHES:
+        rlr_fused.LAUNCHES[k] = 0
+    group.reset_counts()
+    t0 = time.perf_counter()
+    summary = train.run(c, group=group)
+    return {"wall_s": time.perf_counter() - t0,
+            "launches": dict(rlr_fused.LAUNCHES),
+            "counts": dict(group.counts), "seconds": dict(group.seconds),
+            "summary": {k: v for k, v in summary.items() if k != "params"}}
+
+
+def check_variants(cfg, st, ranks, full, sizes):
+    """The parent's side of `server_variants`: every variant on every rank
+    against the plan, rank 0's params and values against the dense plain
+    server step on the concatenated stack. Returns the lines to print."""
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.fl import (
+        rounds)
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel import (
+        multihost)
+
+    sampled = ranks[0]["sampled"]
+    cap = ranks[0]["variants"]["cap"]
+    lines = []
+    for label, c in variant_cfgs(cfg, cap).items():
+        plan = multihost.plan_collectives(c, st["params"], len(ranks))
+        plan["all_reduce"] -= 1     # the loss's, outside the server step
+        for r, out in enumerate(ranks):
+            if out["variants"][label]["counts"] != plan:
+                raise AssertionError(
+                    f"{label}: rank {r} made {out['variants'][label]['counts']}"
+                    f", the plan is {plan}")
+        v = ranks[0]["variants"][label]
+        noise, draw, qmask, flags = variant_inputs(c, st["params"], sampled,
+                                                   DEVICE)
+        want, winfo = rounds.server_path(
+            st["params"], full, sizes, c.replace(health="off",
+                                                 use_fused=False),
+            noise, draw, qmask, flags)
+        exact = c.aggr in ("sign", "comed", "krum")
+        diff = 0.0
+        for k, got in v["new"].items():
+            got = got.to(DEVICE)
+            if exact:
+                torch.testing.assert_close(got, want[k], atol=0, rtol=0)
+            torch.testing.assert_close(got, want[k], atol=TOL, rtol=TOL)
+            diff = max(diff, float((got - want[k]).abs().max()))
+        if set(v["info"]) != set(winfo) - {"hlth_nonfinite",
+                                           "hlth_params_finite",
+                                           "hlth_update_normsq",
+                                           "hlth_agent_bad"}:
+            raise AssertionError(f"{label}: info {sorted(v['info'])} "
+                                 f"against {sorted(winfo)}")
+        for k, got in v["info"].items():
+            w = winfo[k].cpu()
+            if k.startswith("fault_"):
+                if not torch.equal(got, w):
+                    raise AssertionError(f"{label}: {k} {got} against {w}")
+            else:
+                torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-6)
+        secs = ", ".join(f"{n} {kind} {v['seconds'][kind] * 1e3:.2f} ms"
+                         for kind, n in v["counts"].items() if n)
+        lines.append(f"[sharded]   {label}: max |diff| {diff:.3e} "
+                     f"({'exact' if exact else 'within ' + str(TOL)}); "
+                     f"rank 0 {v['ms']:.2f} ms, inside {secs}"
+                     + (f"; voters {float(v['info']['fault_voters']):.0f}"
+                        if "fault_voters" in v["info"] else ""))
+    return lines
 
 
 def profile_round(fn):
@@ -2686,6 +2867,58 @@ def phase_sharded(rlr_fused, record, st) -> None:
                                                          for a in atk)
     record["max_abs_err"] = max(record.get("max_abs_err", 0.0), worst,
                                 k2_err)
+
+    # the server surface on the saved blocks: each variant against the
+    # dense plain step on the whole stack and the plan, kind by kind
+    lines = check_variants(cfg, st, ranks, full, sizes)
+    log(f"[sharded] the server surface on round 1's saved blocks at "
+        f"d={world} (payload cap {ranks[0]['variants']['cap']:.4f}) "
+        f"against the dense plain step; every rank's collectives the "
+        f"plan's, kind by kind:")
+    for line in lines:
+        log(line)
+
+    # the 2-round bucket + telemetry + faults + quarantine run
+    from defending_against_backdoors_with_robust_learning_rate_tpu_torch.obs import (
+        telemetry)
+    runs = [out["bucket_run"] for out in ranks]
+    bcfg = cfg.replace(agg_layout="bucket", telemetry="full",
+                       dropout_rate=0.2, quarantine="0")
+    plan = multihost.plan_collectives(bcfg, st["params"], world)
+    want = {k: n * BUCKET_RUN_ROUNDS for k, n in plan.items()}
+    lead = runs[0]["summary"]
+    for r, run in enumerate(runs):
+        if any(run["launches"].values()):
+            raise AssertionError(f"rank {r} launched {run['launches']} on "
+                                 f"the bucket path")
+        if run["counts"] != want:
+            raise AssertionError(f"rank {r}: {run['counts']} in the bucket "
+                                 f"run, the plan is {want}")
+    for key in ("train_loss", "val_acc", "val_loss", "poison_acc",
+                "poison_loss", "rounds_per_sec", "fault_voters"):
+        if not math.isfinite(lead[key]):
+            raise AssertionError(f"bucket run: {key} = {lead[key]}")
+    defense = lead.get("defense", {})
+    if (lead["hlth_nonfinite"] != 0 or lead["hlth_params_finite"] != 1
+            or set(defense) != set(telemetry.telemetry_keys(bcfg))
+            or not all(
+                math.isfinite(x) for v in defense.values()
+                for x in (v if isinstance(v, list) else [v]))):
+        raise AssertionError(f"bucket run's lanes: {lead}")
+    log(f"[sharded] bucket run ({BUCKET_RUN_ROUNDS} rounds, --agg_layout "
+        f"bucket --telemetry full --dropout_rate 0.2 --quarantine 0): K1 "
+        f"and K2 0 launches, {want} on every rank; rounds/s "
+        f"{lead['rounds_per_sec']:.3f} with eval, {runs[0]['wall_s']:.1f} "
+        f"s on rank 0; train_loss {lead['train_loss']:.4f}, voters "
+        f"{lead['fault_voters']:.0f}, LR flip fraction "
+        f"{defense['tel_flip_frac']:.4f}")
+    for r, run in enumerate(runs):
+        secs = ", ".join(f"{kind} {run['seconds'][kind] * 1e3:.1f} ms"
+                         for kind, n in run["counts"].items() if n)
+        log(f"[sharded]   rank {r}: host time inside the collectives of "
+            f"its {BUCKET_RUN_ROUNDS} rounds: {secs}")
+    record["launches_by_path"]["sharded bucket"] = sum(
+        run["launches"]["rlr_partial"] for run in runs)
 
 
 def nccl_child(port: int) -> None:

@@ -60,7 +60,7 @@ ARCHS = ("auto", "cnn", "resnet9")
 HOST_SAMPLED = ("auto", "on", "off")
 PATTERNS = ("plus", "square", "copyright", "apple")
 ATTACKS = tuple(attack_registry.REGISTRY)   # static | dba | boost | signflip
-AGG_LAYOUTS = ("leaf", "bucket")    # JAX's choices; bucket is not ported
+AGG_LAYOUTS = ("leaf", "bucket")    # the sharded round's layouts
 TRAIN_LAYOUTS = ("vmap", "megabatch")
 COHORT_SAMPLED = ("auto", "on", "off")
 
@@ -111,7 +111,7 @@ class Config:
     num_processes: int = 0          # total processes (one per card)
     process_id: int = -1            # this process's rank; -1 = from env
     mesh: int = 1                   # ranks on the `agents` axis; 0 = all
-    agg_layout: str = "leaf"        # leaf (per-leaf all_reduces) | bucket
+    agg_layout: str = "leaf"        # leaf (packed all_reduce) | bucket
     # --- fault injection and participation (JAX faults/) ---
     dropout_rate: float = 0.0       # per-round Bernoulli client dropout
     straggler_rate: float = 0.0     # per-round straggler probability
@@ -521,10 +521,6 @@ def args_parser(argv: Optional[list] = None) -> Config:
     if cfg.agg_layout not in AGG_LAYOUTS:
         raise ValueError(f"--agg_layout must be one of {AGG_LAYOUTS}, got "
                          f"{cfg.agg_layout!r}")
-    if cfg.agg_layout == "bucket":
-        raise ValueError("--agg_layout bucket (parallel/buckets.py: "
-                         "reduce_scatter + all_gather) is not ported yet; "
-                         "the port has the leaf layout")
     health_monitor.check(cfg)
     if cfg.train_layout not in TRAIN_LAYOUTS:
         raise ValueError(f"--train_layout must be one of {TRAIN_LAYOUTS}, "
@@ -565,8 +561,8 @@ TENANTS_NOT_PORTED = (
     "experiment a process")
 BUFFERED_SHARDED_NOT_PORTED = (
     "--agg_mode buffered on the sharded round is not ported yet (ROADMAP "
-    "queue 1 item 11: its round has no fault mask to carry the straggler "
-    "flags); run the dense, chained or cohort round on one card")
+    "queue 1 item 11: the buffered fold over the agents group); run the "
+    "dense, chained or cohort round on one card")
 BUFFERED_HOST_SAMPLED = (
     "--agg_mode buffered is not supported in host-sampled mode (this "
     "dataset is above the device-resident budget and the host step has "
@@ -577,9 +573,9 @@ CHAOS_NOT_PORTED = (
     "--chaos (service/chaos.py: the service driver's fault drills, "
     "bank_corrupt among them) is not ported yet (ROADMAP queue 1 item 15)")
 SHARDED_COHORT_NOT_PORTED = (
-    "the sharded cohort round (JAX make_sharded_cohort_round_fn) and "
-    "churn or traffic on the sharded round are not ported yet (ROADMAP "
-    "queue 1 item 11); run the cohort-sampled round on one card")
+    "the sharded cohort round (JAX make_sharded_cohort_round_fn) is not "
+    "ported yet (ROADMAP queue 1 item 11); run the cohort-sampled round on "
+    "one card, or churn and traffic on the device-resident sharded round")
 
 
 def print_exp_details(cfg: Config) -> None:

@@ -399,15 +399,25 @@ def _participation(cfg, updates, draw=None, qmask=None):
         mask = draw.participate & fmodel.payload_valid(
             updates, cfg.payload_norm_cap)
         info.update(fmodel.fault_scalars(draw, mask))
-    if qmask is not None:
-        mask = qmask if mask is None else mask & qmask
-        if draw is not None:
-            info["fault_voters"] = masking.count_f32(mask)
-            if cfg.churn_enabled:
-                info["churn_away"] = churn.churn_away(qmask)
-        elif cfg.churn_enabled:
-            info.update(churn.churn_only_scalars(qmask, mask))
-    return updates, mask, info
+    return updates, join_presence(cfg, mask, qmask, info), info
+
+
+def join_presence(cfg, mask, qmask, info):
+    """mask (the fault mask, or None without a fault draw) &= qmask (the
+    [m] quarantine and presence mask, or None), with the effective voters
+    recounted in `info` and, under churn, the away count (without a fault
+    draw, JAX's churn-only Faults/* scalars). Returns the joined mask."""
+    if qmask is None:
+        return mask
+    faulted = mask is not None
+    mask = qmask if mask is None else mask & qmask
+    if faulted:
+        info["fault_voters"] = masking.count_f32(mask)
+        if cfg.churn_enabled:
+            info["churn_away"] = churn.churn_away(qmask)
+    elif cfg.churn_enabled:
+        info.update(churn.churn_only_scalars(qmask, mask))
+    return mask
 
 
 def buffered_path(carry, updates, sizes, cfg, noise=None, draw=None,

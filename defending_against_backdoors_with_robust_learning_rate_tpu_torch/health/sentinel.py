@@ -148,10 +148,11 @@ def sentinel(cfg, updates: Params, new_params: Params, mask=None):
             "hlth_agent_bad": bad}
 
 
-def local_lanes(updates_local: Params) -> torch.Tensor:
-    """[2] f32 (bad count, normsq) partials of this rank's agent block,
-    for the sharded round's packed loss all_reduce."""
-    bad, nsq = _row_stats(updates_local)
+def local_lanes(updates_local: Params, mask_local=None) -> torch.Tensor:
+    """[2] f32 (bad count, normsq) partials of this rank's agent block
+    (rows outside `mask_local`, the block's participation mask, neither
+    bad nor counted), for the sharded round's packed loss all_reduce."""
+    bad, nsq = _row_stats(updates_local, mask_local)
     return torch.stack([torch.sum(bad.to(torch.float32)), torch.sum(nsq)])
 
 

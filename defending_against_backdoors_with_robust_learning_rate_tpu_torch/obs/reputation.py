@@ -93,8 +93,9 @@ TAGS = {
 }
 
 NOT_PORTED_SHARDED = (
-    "--reputation on on the sharded round is not ported yet (the lanes "
-    "against the replicated sign sums of the vote's all_reduce)")
+    "--reputation on on the sharded round is not ported yet (ROADMAP queue "
+    "1 item 11: the lanes against the replicated sign sums of the vote's "
+    "all_reduce)")
 
 
 def wants_vote(cfg) -> bool:

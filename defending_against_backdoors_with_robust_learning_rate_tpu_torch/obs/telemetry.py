@@ -31,8 +31,15 @@ describes the buffered electorate, bucketized over its `vote_range`
 ``tel_stale_flip`` and ``tel_stale_cos`` ([S+1] each,
 fl/buffered._per_bin_split), one Defense/Stale_* row per bin.
 
-Not ported: `compute_sharded`, `shard_vote_stats` and
-`compute_sharded_bucket` (the sharded round refuses ``--telemetry``).
+The sharded round (parallel/rounds.py) computes the same values over its
+agents group: `compute_sharded` on the leaf layout, from each rank's
+[m/d] block and the replicated lr and aggregate, with three all_gathers
+under ``full`` (the norms and the two cosine accumulators; one, the
+norms, under ``basic``) and no all_reduce of its own: the margins re-read
+the vote's all_reduced sign sums. On the bucket layout `shard_vote_stats`
+packs the flip count and the margin counts of the scattered shard into
+the result all_gather, and `compute_sharded_bucket` adds the same norm
+and cosine all_gathers (JAX obs/telemetry.py:223-361).
 """
 
 from __future__ import annotations
@@ -113,20 +120,24 @@ def _flip_fraction(lr):
     return neg / total
 
 
-def _bucketize_margins(s, m: int):
+def _bucketize_margins(s, m: int, weights=None):
     """[B] coordinate counts of the vote margins s (values in [0, m]),
     plus their sum: bucket i covers margins in [i*(m+1)/B, (i+1)*(m+1)/B).
     The counts are added with index_add_ (bincount sizes its output from
     the data, a host sync a captured round cannot make); each count is an
-    integer below 2**24, exact in f32 in any order."""
+    integer below 2**24, exact in f32 in any order. `weights` ([len(s)]
+    f32) scales each coordinate's part: the bucket layout's real-coordinate
+    mask, so its zero padding (margin 0) counts nowhere."""
     flat = s.reshape(-1)
     idx = torch.clamp(torch.div(flat.to(torch.int64) * N_MARGIN_BUCKETS,
                                 m + 1, rounding_mode="floor"),
                       0, N_MARGIN_BUCKETS - 1)
+    ones = (torch.ones_like(flat, dtype=torch.float32) if weights is None
+            else weights)
     counts = torch.zeros(N_MARGIN_BUCKETS, dtype=torch.float32,
-                         device=flat.device).index_add_(
-        0, idx, torch.ones_like(flat, dtype=torch.float32))
-    return counts, torch.sum(flat.to(torch.float32))
+                         device=flat.device).index_add_(0, idx, ones)
+    flat = flat.to(torch.float32)
+    return counts, torch.sum(flat if weights is None else flat * weights)
 
 
 def _cosine_accumulators(updates, agg, m: int):
@@ -166,6 +177,16 @@ def _agg_sqnorm(agg):
                for a in agg.values())
 
 
+def _split_flags(m: int, device, corrupt_full, mask_full):
+    """The [m] corrupt flags and electorate of the cosine split (no flags:
+    all honest; no mask: every slot)."""
+    corrupt = (torch.zeros(m, dtype=torch.bool, device=device)
+               if corrupt_full is None else corrupt_full)
+    valid = (torch.ones(m, dtype=torch.bool, device=device)
+             if mask_full is None else mask_full)
+    return corrupt, valid
+
+
 def compute(cfg, updates, lr, agg, mask=None, corrupt_flags=None,
             sign_sums=None, vote_range=None):
     """Telemetry dict of the dense round. `updates` are [m, ...] tensors;
@@ -197,11 +218,97 @@ def compute(cfg, updates, lr, agg, mask=None, corrupt_flags=None,
     dots, usq = _cosine_accumulators(updates, agg, m)
     total = sum(u.numel() // m for u in updates.values())
     out.update(_finish_margins(counts, margin_sum, total, vr))
-    corrupt = (torch.zeros(m, dtype=torch.bool, device=device)
-               if corrupt_flags is None else corrupt_flags)
-    valid = (torch.ones(m, dtype=torch.bool, device=device)
-             if mask is None else mask)
-    out.update(_finish_cosine(dots, usq, _agg_sqnorm(agg), corrupt, valid))
+    out.update(_finish_cosine(dots, usq, _agg_sqnorm(agg),
+                              *_split_flags(m, device, corrupt_flags, mask)))
+    return out
+
+
+def compute_sharded(cfg, updates_local, lr, agg, group, mask_local=None,
+                    mask_full=None, corrupt_full=None, sign_sums=None):
+    """Telemetry dict of the sharded round's leaf layout (JAX
+    `compute_sharded`). `updates_local` is this rank's [m/d, ...] block,
+    `lr` the replicated robust-lr dict or None (RLR off), `agg` the
+    replicated aggregate dict, `mask_local`/`mask_full` the block's and
+    the round's [m] participation masks, `corrupt_full` the [m]
+    corrupt-slot flags, `sign_sums` the vote's all_reduced per-leaf sign
+    sums (needed under ``full``). Collectives: the norms' all_gather, and
+    under ``full`` the two cosine accumulators' all_gathers."""
+    m = cfg.agents_per_round
+    if mask_local is not None:
+        updates_local = masking.zero_masked(updates_local, mask_local)
+    out = _norm_percentiles(group.all_gather(per_agent_norms(updates_local)))
+    if lr is not None:
+        out["tel_flip_frac"] = _flip_fraction(lr)     # replicated
+    if cfg.telemetry != "full":
+        return out
+    if sign_sums is None:
+        raise ValueError("full telemetry on the sharded round reads the "
+                         "vote's all_reduced sign sums")
+    device = out["tel_upd_norm_max"].device
+    counts = torch.zeros(N_MARGIN_BUCKETS, dtype=torch.float32,
+                         device=device)
+    margin_sum = torch.zeros((), dtype=torch.float32, device=device)
+    for s in sign_sums.values():
+        c, ms = _bucketize_margins(torch.abs(s), m)
+        counts, margin_sum = counts + c, margin_sum + ms
+    mb = next(iter(updates_local.values())).shape[0]
+    dots_l, usq_l = _cosine_accumulators(updates_local, agg, mb)
+    total = sum(u.numel() // mb for u in updates_local.values())
+    out.update(_finish_margins(counts, margin_sum, total, m))
+    out.update(_finish_cosine(group.all_gather(dots_l),
+                              group.all_gather(usq_l), _agg_sqnorm(agg),
+                              *_split_flags(m, device, corrupt_full,
+                                            mask_full)))
+    return out
+
+
+def shard_vote_stats(cfg, sign_shard, real_mask, lr_shard, m: int):
+    """The bucket layout's vote statistics of this rank's scattered
+    sign-sum shard, one small f32 vector that rides the result all_gather
+    (JAX `shard_vote_stats`): [real coordinates with lr < 0] when RLR is
+    on, then under ``full`` [N_MARGIN_BUCKETS counts, margin sum]. Summed
+    over the gathered rows they are the global values. None when nothing
+    is needed."""
+    stats = []
+    if lr_shard is not None:
+        stats.append(torch.sum(torch.where(real_mask & (lr_shard < 0),
+                                           1.0, 0.0)).reshape(1))
+    if cfg.telemetry == "full":
+        counts, margin_sum = _bucketize_margins(
+            torch.abs(sign_shard), m, weights=real_mask.to(torch.float32))
+        stats += [counts, margin_sum.reshape(1)]
+    return torch.cat(stats) if stats else None
+
+
+def compute_sharded_bucket(cfg, updates_local, info, group, mask_local=None,
+                           mask_full=None, corrupt_full=None):
+    """Telemetry dict of the bucket layout (JAX `compute_sharded_bucket`):
+    `info` is parallel/rounds.BucketInfo, with the summed
+    `shard_vote_stats`, the real coordinate count and, under ``full``,
+    the replicated aggregate dict that rode the result all_gather. The
+    flip fraction and the margins come with the stats; the norms and the
+    cosine accumulators cost the leaf layout's all_gathers."""
+    m = cfg.agents_per_round
+    if mask_local is not None:
+        updates_local = masking.zero_masked(updates_local, mask_local)
+    out = _norm_percentiles(group.all_gather(per_agent_norms(updates_local)))
+    total = info.total_coords
+    i = 0
+    if cfg.robustLR_threshold > 0:
+        out["tel_flip_frac"] = info.stats[0] / total
+        i = 1
+    if cfg.telemetry != "full":
+        return out
+    out.update(_finish_margins(info.stats[i:i + N_MARGIN_BUCKETS],
+                               info.stats[i + N_MARGIN_BUCKETS], total, m))
+    mb = next(iter(updates_local.values())).shape[0]
+    dots_l, usq_l = _cosine_accumulators(updates_local, info.agg, mb)
+    device = out["tel_upd_norm_max"].device
+    out.update(_finish_cosine(group.all_gather(dots_l),
+                              group.all_gather(usq_l),
+                              _agg_sqnorm(info.agg),
+                              *_split_flags(m, device, corrupt_full,
+                                            mask_full)))
     return out
 
 

@@ -64,6 +64,11 @@ one process per card over NCCL, launched by `torchrun` (or with
 round (parallel/rounds.py) and the lead rank alone evaluates, writes the
 metrics and prints. `run(cfg, group=...)` takes an `agents` group that the
 caller built (the tests' and chip_smoke.py's ranks sharing one device).
+The sharded round runs every rule, the server noise, the faults, the
+quarantine, churn and diurnal traffic, the telemetry and `--agg_layout
+bucket` (parallel/rounds.py); its `[agg]` line prints the round's
+collectives by kind (parallel/multihost.plan_collectives), and the
+summary carries the counts the run made (`collectives`).
 
 Host-sampled mode (JAX train.py:299-303, :629-695; `--host_sampled`, by
 default when the shard stacks pass utils/compile_cache.
@@ -79,7 +84,7 @@ round stays unchained, with JAX's line. The units whose rounds capture a
 graph (the first, and the first diagnostics snap round) are gathered in
 line. A sharded host-sampled round is not ported yet, nor are
 checkpoints, diagnostics or the reputation lanes on the sharded round
-(`--reputation auto` resolves off there).
+(`--reputation auto` resolves off there; ROADMAP queue 1 item 11).
 
 Cohort-sampled mode (JAX train.py:263-330, :392-470; `--cohort_sampled
 on`, or auto at 4,096 clients or more with a samplable cohort,
@@ -95,12 +100,12 @@ member is corrupt, and copied to the card like the host round's
 captured graph; `--chain` gathers blocks as above. A host-sampled run
 under churn or diurnal traffic takes the cohort round over the dense
 host stacks, with JAX's line, or raises JAX's error when it cannot.
-Churn and traffic on the dense round mask its sampled ids (fl/rounds.
-presence); under churn the boundary writes Churn/Sampled_Away after the
-Faults/* rows (JAX train.py:1371-1373). Refused with their ROADMAP
-items: the sharded cohort round, churn or traffic and `--agg_mode
-buffered` on the sharded round (item 11), `--tenants` and `--chaos`
-(item 15).
+Churn and traffic on the dense round and on the device-resident sharded
+round mask their sampled ids (fl/rounds.presence); under churn the
+boundary writes Churn/Sampled_Away after the Faults/* rows (JAX
+train.py:1371-1373). Refused with their ROADMAP items: the sharded cohort
+round and `--agg_mode buffered` on the sharded round (item 11),
+`--tenants` and `--chaos` (item 15).
 
 Buffered-async aggregation (`--agg_mode buffered`, fl/buffered.py; JAX
 train.py:219-226, :697-718): checked and its `[async]` banner printed
@@ -157,7 +162,7 @@ from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel im
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.mesh import (
     AgentsGroup, pick_agent_mesh_size)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.parallel.rounds import (
-    make_sharded_round_fn)
+    BUCKET_DIAGNOSTICS, make_sharded_round_fn)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils import (
     checkpoint as ckpt, compile_cache)
 from defending_against_backdoors_with_robust_learning_rate_tpu_torch.utils.guards import (
@@ -300,16 +305,17 @@ def _sharded_cfg(cfg: Config, say) -> Config:
     `--reputation auto` resolved off, with a printed line."""
     if buffered.is_buffered(cfg):
         raise ValueError(BUFFERED_SHARDED_NOT_PORTED)
-    if (cfg.churn_enabled or cfg.traffic_enabled
-            or compile_cache.is_cohort_mode(cfg)):
+    if compile_cache.is_cohort_mode(cfg):
         raise ValueError(SHARDED_COHORT_NOT_PORTED)
+    if cfg.agg_layout == "bucket" and cfg.diagnostics:
+        raise ValueError(BUCKET_DIAGNOSTICS)
     for flag, on in (("--diagnostics", cfg.diagnostics),
                      ("--checkpoint_dir", bool(cfg.checkpoint_dir)),
                      ("--resume", cfg.resume)):
         if on:
             raise ValueError(f"{flag} on the sharded round is not ported "
-                             f"yet; the dense, chained and host-sampled "
-                             f"rounds have it")
+                             f"yet (ROADMAP queue 1 item 11); the dense, "
+                             f"chained and host-sampled rounds have it")
     if cfg.reputation == "on":
         raise ValueError(obs_reputation.NOT_PORTED_SHARDED)
     if obs_reputation.reputation_on(cfg):
@@ -377,8 +383,8 @@ def _fold_pending(tracker, pending) -> None:
 
 def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     """Train cfg.rounds rounds; returns the last boundary's summary (on
-    every rank of a sharded run: its params and the run's count of
-    all_reduces; on the lead: the metrics)."""
+    every rank of a sharded run: its params and the run's collectives by
+    kind; on the lead: the metrics)."""
     obs_telemetry.check_level(cfg.telemetry)
     health_monitor.check(cfg)
     # the attack config, loudly and before any build (attack/registry.py:
@@ -551,8 +557,8 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
                                  fed.train.sizes)
     elif chain_n > 1:
         raise ValueError("--chain > 1 on the sharded round is not ported "
-                         "yet (the sharded round runs eagerly, one round a "
-                         "dispatch)")
+                         "yet (ROADMAP queue 1 item 11: the sharded round "
+                         "runs eagerly, one round a dispatch)")
     else:
         m = cfg.agents_per_round
         say(f"[mesh] {group.size} devices on the `agents` axis "
@@ -775,7 +781,9 @@ def run(cfg: Config, group: Optional[AgentsGroup] = None) -> Dict:
     if is_buffered:
         summary["buffer"] = state
     summary["cum_net_mov"] = cum_net_mov
-    summary["all_reduces"] = group.calls if group is not None else 0
+    summary["all_reduces"] = (group.counts["all_reduce"] if group is not None
+                              else 0)
+    summary["collectives"] = dict(group.counts) if group is not None else {}
     return summary
 
 

@@ -125,12 +125,13 @@ def test_sharded_attacked_round_matches_dense():
                                        float(dinfo["hlth_update_normsq"]),
                                        rtol=1e-5, err_msg=what)
 
-    # the sharded round refuses what it does not run yet
+    # the sharded round refuses what it does not run yet (the telemetry
+    # is ported: tests/test_torch_sharded_telemetry.py)
     group = type("G", (), {"size": 2, "rank": 0})()
-    for level in ("basic", "full"):
+    for kw in (dict(diagnostics=True), dict(reputation="on")):
         with pytest.raises(ValueError, match="not ported yet"):
-            make_sharded_round_fn(Config(**KW, telemetry=level), None, None,
-                                  group, None, None, None)
+            make_sharded_round_fn(Config(**KW, telemetry="full", **kw), None,
+                                  None, group, None, None, None)
 
 
 def test_host_round_and_payload_cap_under_boost():

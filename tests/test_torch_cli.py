@@ -87,8 +87,13 @@ def test_cli_two_rounds_writes_reference_tags(tmp_path, capsys):
             train.resolve_device("cuda")
     with pytest.raises(ValueError, match="not ported"):
         train.args_parser(["--health_policy", "recover"])
-    with pytest.raises(ValueError, match="bucket"):
-        train.args_parser(["--agg_layout", "bucket"])
+    # the bucket layout is ported (the sharded round's server step); the
+    # sharded round refuses it beside --diagnostics with JAX's words
+    assert train.args_parser(["--agg_layout", "bucket"]).agg_layout == \
+        "bucket"
+    with pytest.raises(ValueError, match="bucket does not support"):
+        train._sharded_cfg(train.args_parser(
+            ["--agg_layout", "bucket", "--diagnostics"]), print)
 
 
 def _imports(path):

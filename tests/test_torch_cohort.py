@@ -190,12 +190,15 @@ def test_population_cli_and_refusals(capsys):
         with pytest.raises(ValueError) as e:
             config.args_parser(argv)
         assert str(e.value) == text and "not ported yet" in text
-    for kw in (dict(churn_available=0.5), dict(traffic="diurnal"),
-               dict(cohort_sampled="on")):
-        with pytest.raises(ValueError) as e:
-            train._sharded_cfg(Config(**kw), print)
-        assert str(e.value) == config.SHARDED_COHORT_NOT_PORTED
-        assert "ROADMAP queue 1 item 11" in str(e.value)
+    # churn and traffic run on the device-resident sharded round; the
+    # sharded cohort round stays refused
+    for kw in (dict(churn_available=0.5), dict(traffic="diurnal")):
+        assert train._sharded_cfg(Config(**kw), print).replace(
+            reputation="auto") == Config(**kw)
+    with pytest.raises(ValueError) as e:
+        train._sharded_cfg(Config(cohort_sampled="on"), print)
+    assert str(e.value) == config.SHARDED_COHORT_NOT_PORTED
+    assert "ROADMAP queue 1 item 11" in str(e.value)
     # the oversample's loud cap, JAX's words
     deep = dict(cohort_sampled="on", num_agents=10_000_000,
                 cohort_size=4096, churn_available=0.001)

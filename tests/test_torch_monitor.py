@@ -151,8 +151,9 @@ def test_enforce_and_refusals(tmp_path, capsys):
     assert not bool(guards.all_finite_device(params))
 
     # refusals: the ladder, checkify; --quarantine on the host-sampled
-    # round (JAX's error); and the sharded round with a new rule, with
-    # faults or with a quarantine set
+    # round (JAX's error). The sharded round runs the new rules, the
+    # faults and a quarantine set (tests/test_torch_sharded_*.py) and
+    # refuses --diagnostics beside them
     for argv in (["--health_policy", "recover"], ["--debug_nan"]):
         with pytest.raises(ValueError, match="not ported yet"):
             train.args_parser(argv)
@@ -167,9 +168,10 @@ def test_enforce_and_refusals(tmp_path, capsys):
     for cfg in (Config(aggr="comed"), Config(aggr="krum"),
                 Config(dropout_rate=0.1), Config(payload_norm_cap=5.0),
                 Config(quarantine="1")):
+        assert prounds._check_sharded(cfg, group) == cfg.agents_per_round // 2
         with pytest.raises(ValueError, match="not ported yet"):
-            prounds.make_sharded_round_fn(cfg, None, None, group, None, None,
-                                          None)
+            prounds.make_sharded_round_fn(cfg.replace(diagnostics=True), None,
+                                          None, group, None, None, None)
 
     old = torch.get_num_threads()
     torch.set_num_threads(1)
